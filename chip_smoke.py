@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device and the CUDA toolkit (nvcc); builds every kernel of
-the main path from qm_door_torch/csrc at first use. Exits non-zero, with no
-result line, when CUDA is unavailable or any phase fails.
+Needs one CUDA device and the CUDA toolkit (nvcc); builds every kernel
+source in qm_door_torch/csrc first, one nvcc each, all at once. Exits
+non-zero, with no result line, when CUDA is unavailable or any phase fails.
 
 Phases:
   (a) kernels: builds K1 (the SPD solve) and holds it against its plain
@@ -25,15 +25,31 @@ Phases:
   (c) cross precision: 3 steps at B = 4 with lin_tangents="analytic", the
       port on the GPU in f32 against the port on the CPU in f64
       (max|dX| <= 2e-5, max|dU| <= 2.5e-3 N).
+  (d) kernels of the other LQ backends, on (b)'s own warm-iterate data at
+      B = 384, N = 67: K2 (fused backward sweep), K3a/K3b (projection),
+      K3c (backward sweep), K3d (forward rollout), each against its plain
+      version in f64 on the same inputs (pass: relative max error <= 1e-4
+      for K3a/K3b, <= 1e-3 for the sweeps; the plain f32 error printed
+      beside), timed with CUDA events next to its bound and its plain time;
+      K1-ll (lanes-last K1) against spd_solve_plain with ragged batches;
+      each new wrapper refuses float64 and a non-contiguous input.
+  (e) backends: BatchedMpc(backend="bm_fused") and ("lq_fused") driven as
+      (b) drives bm_k1 (one cold and 20 warm steps, exact launches a step:
+      bm_fused K1 1 + K2 1; lq_fused K3a, K3b, K3c, K3d 1 each, no K1;
+      mean violation <= 1e-5), their LQ stage's host ms and device busy
+      ms at (b)'s iterate and its max|dX|, |dU| difference from bm_k1 there,
+      and (c)'s cross-precision check for each.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+Every launch counter is set to 0 just before each backend's steps and read
+just after. The line before the last is {"kernels": [...]}; the last line
+is {"ok": true, "device": {...}}.
 """
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,6 +59,8 @@ PERTURBATION = 0.02
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32, outside the tensor cores
 K1_REL_TOL = 1e-4
+PROJECTION_REL_TOL = 1e-4  # K3a, K3b
+SWEEP_REL_TOL = 1e-3       # K2, K3c, K3d
 VIOLATION_MAX = 1e-5
 CROSS_DX_MAX = 2e-5
 CROSS_DU_MAX = 2.5e-3
@@ -111,18 +129,47 @@ def spd_batch(rng, batch, n, m):
     return A, rng.normal(size=(batch, n, m))
 
 
+def build_all():
+    """Build every kernel source of qm_door_torch/csrc and the sweep kernel's
+    diagnostic variant, one nvcc each, all started together; log each one's
+    ptxas report."""
+    from qm_door_torch.ops import cuda_build
+    from qm_door_torch.ops.riccati_fused import PHASE_CLOCKS
+
+    libs = [(n[:-3], ()) for n in sorted(os.listdir(cuda_build.CSRC)) if n.endswith(".cu")]
+    libs.append(("riccati_bwd", (PHASE_CLOCKS,)))
+    t0 = time.time()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        outs = list(pool.map(lambda lib: cuda_build.build(*lib), libs))
+    log(f"built {', '.join(' -D'.join((n,) + d) for n, d in libs)} in {time.time() - t0:.1f} s")
+    for (name, defines), out in zip(libs, outs):
+        for line in out.splitlines():
+            log(f"nvcc {' -D'.join((name,) + defines)}: {line}")
+
+
+def launch_counters():
+    """Every kernel wrapper that counts its launches, by kernel id."""
+    from qm_door_torch.ops import lq, riccati_fused, spd_solve
+
+    return {"K1": spd_solve.spd_solve, "K1-ll": spd_solve.spd_solve_ll,
+            "K2": riccati_fused.riccati_backward_fused, "K3a": lq.project_geom,
+            "K3b": lq.project_cost, "K3c": lq.riccati_backward_ll, "K3d": lq.riccati_forward_ll}
+
+
+def reset_launches():
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {kid: wrapper.launches for kid, wrapper in launch_counters().items()}
+
+
 def phase_kernels(dev):
-    """(a) build K1, hold it against its plain versions, time it."""
+    """(a) hold K1 against its plain versions, time it."""
     import torch
 
-    from qm_door_torch.ops import cuda_build
     from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_plain
-
-    t0 = time.time()
-    nvcc_out = cuda_build.build("spd_solve")
-    log(f"[a] built K1 in {time.time() - t0:.1f} s")
-    for line in nvcc_out.splitlines():
-        log(f"[a] nvcc: {line}")
 
     rng = np.random.default_rng(0)
     shapes = [("projection", BATCH * 67, 12, 49, 1),
@@ -197,9 +244,10 @@ def check_k1_edges(dev, rng):
     log("[a] K1 edge cases and refusals: ok")
 
 
-def make_problem(dev, dtype, batch, lin_tangents):
+def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1"):
     """The bench problem: AlienGo+Z1, 1 s / 67-node trot horizon, targets at
-    the nominal pose, seed-0 initial-state perturbations."""
+    the nominal pose, seed-0 initial-state perturbations; BatchedMpc on the
+    given LQ backend."""
     import torch
 
     from qm_door_torch.config import default_config
@@ -229,51 +277,64 @@ def make_problem(dev, dtype, batch, lin_tangents):
     perturb = np.random.default_rng(0).normal(size=(BATCH, 30)) * PERTURBATION
     x0_np = cfg.initial_state().astype(np.float32 if dtype == torch.float32 else np.float64)
     x_batch = torch.tensor(x0_np[None] + perturb[:batch], dtype=dtype, device=dev)
-    return BatchedMpc(solver), stage, x_batch
+    return BatchedMpc(solver, backend=backend), stage, x_batch
 
 
-def phase_main_path(dev):
-    """(b) BatchedMpc at full width, K1 launch count, per-stage times and
-    device profile."""
+# launches a step of each LQ backend; every other counter must stay at 0
+LAUNCHES_PER_STEP = {"bm_k1": {"K1": 68}, "bm_fused": {"K1": 1, "K2": 1},
+                     "lq_fused": {"K3a": 1, "K3b": 1, "K3c": 1, "K3d": 1}}
+
+
+def drive(dev, backend, tag):
+    """BatchedMpc(backend) at B = 384: one cold and WARM_STEPS warm steps
+    with the launch counters set to 0 just before and read just after;
+    checks the launches a step and the mean violation. Returns the run's
+    numbers and its final state."""
     import torch
 
-    from qm_door_torch.ops.spd_solve import spd_solve
-    from qm_door_torch.solver.riccati import lqr_solve_batched
-    from qm_door_torch.solver.sqp import evaluate_trajectory
-    from qm_door_torch.solver.transcription import linearize_ocp, project_ocp_batched
+    from qm_door_torch.solver import batched_sqp
 
-    mpc, stage, x_batch = make_problem(dev, torch.float32, BATCH, "analytic_bf16")
+    mpc, stage, x_batch = make_problem(dev, torch.float32, BATCH, "analytic_bf16", backend)
     X, U = mpc.cold_start(stage, x_batch)
-
-    spd_solve.launches = 0
-    t0 = time.time()
-    X, U, stats = mpc.step(stage, x_batch, X, U)
-    torch.cuda.synchronize()
-    cold_s = time.time() - t0
-    t0 = time.time()
-    for _ in range(WARM_STEPS):
+    # count the linesearch's trajectory evaluations (1 or 2 a step)
+    evaluate, evals = batched_sqp.evaluate_trajectory, []
+    batched_sqp.evaluate_trajectory = lambda *a: evals.append(1) or evaluate(*a)
+    try:
+        reset_launches()
+        t0 = time.time()
         X, U, stats = mpc.step(stage, x_batch, X, U)
-    torch.cuda.synchronize()
-    elapsed = time.time() - t0
-    launches = spd_solve.launches
+        torch.cuda.synchronize()
+        cold_s = time.time() - t0
+        t0 = time.time()
+        for _ in range(WARM_STEPS):
+            X, U, stats = mpc.step(stage, x_batch, X, U)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        launches = read_launches()
+    finally:
+        batched_sqp.evaluate_trajectory = evaluate
     steps = WARM_STEPS + 1
-
+    want = {kid: LAUNCHES_PER_STEP[backend].get(kid, 0) * steps for kid in launches}
     viol = stats[1].mean().item()
     finite = bool(torch.isfinite(X).all() and torch.isfinite(U).all())
-    if launches != 68 * steps:
-        raise RuntimeError(f"K1 launched {launches} times in {steps} steps, not 68 a step")
+    if launches != want:
+        raise RuntimeError(f"{backend}: launches {launches} in {steps} steps, expected {want}")
     if not (finite and np.isfinite(viol) and viol <= VIOLATION_MAX):
-        raise RuntimeError(f"main path: finite={finite}, mean violation {viol:.3e}")
+        raise RuntimeError(f"{backend}: finite={finite}, mean violation {viol:.3e}")
+    log(f"[{tag}] {backend}: launches in {steps} steps {launches}")
+    return dict(mpc=mpc, stage=stage, x_batch=x_batch, X=X, U=U, cold_s=cold_s,
+                elapsed=elapsed, launches=launches, steps=steps, viol=viol,
+                linesearch_evals=len(evals))
 
-    # per-stage split at the warm iterate (separate timed calls, after the
-    # launch count was read)
-    s, solver = mpc.solver.settings, mpc.solver
-    N = solver.n_intervals
 
-    stage_ms, device = {}, {}
+def timer(stage_ms, device):
+    """timed(name, fn): host ms per call over 3 calls (after one warm-up);
+    one call's span on the stream between two CUDA events (device time plus
+    the gaps where the card waits for the host); then one call profiled for
+    device busy time."""
+    import torch
 
     def timed(name, fn, reps=3):
-        """Host ms per call over `reps` calls, then one call profiled."""
         fn()
         torch.cuda.synchronize()
         t = time.time()
@@ -281,9 +342,67 @@ def phase_main_path(dev):
             out = fn()
         torch.cuda.synchronize()
         stage_ms[name] = (time.time() - t) / reps * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
         device[name] = device_busy(fn)
+        device[name]["stream_span_ms"] = start.elapsed_time(end)
         return out
 
+    return timed
+
+
+def run_result(run, backend, step_device):
+    """The bench.py-style result line of one backend's run."""
+    import torch
+
+    elapsed, steps = run["elapsed"], run["steps"]
+    step_ms = 1e3 * elapsed / WARM_STEPS
+    busy_ms = step_device["kernel_ms"]
+    return {
+        "metric": "mpc_solves_per_s",
+        "value": BATCH * WARM_STEPS / elapsed,
+        "unit": "solves/s",
+        "vs_baseline": BATCH * WARM_STEPS / elapsed / 10000.0,
+        "batch": BATCH,
+        "reps": WARM_STEPS,
+        "per_solve_us": 1e6 * elapsed / (BATCH * WARM_STEPS),
+        "compile_s": run["cold_s"],
+        "backend": f"{backend}_cuda",
+        "config": "combined",
+        "mean_violation": run["viol"],
+        "device": torch.cuda.get_device_name(0),
+        "impl": "torch",
+        "step_ms": step_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / step_ms,
+        "launches": run["launches"],
+        "launches_per_step": {k: v / steps for k, v in run["launches"].items() if v},
+        "linesearch_evals_per_step": run["linesearch_evals"] / steps,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+
+
+def phase_main_path(dev):
+    """(b) BatchedMpc (bm_k1) at full width, K1 launch count, per-stage times
+    and device profile. Returns the run and the LQ data at its final
+    (warm) iterate for (d) and (e)."""
+    import torch
+
+    from qm_door_torch.solver.riccati import lqr_solve_batched
+    from qm_door_torch.solver.sqp import evaluate_trajectory
+    from qm_door_torch.solver.transcription import linearize_ocp, project_ocp_batched
+
+    run = drive(dev, "bm_k1", "b")
+    mpc, stage, x_batch, X, U = (run[k] for k in ("mpc", "stage", "x_batch", "X", "U"))
+
+    # per-stage split at the warm iterate (separate timed calls, after the
+    # launch count was read)
+    s, solver = mpc.solver.settings, mpc.solver
+    N = solver.n_intervals
+    stage_ms, device = {}, {}
+    timed = timer(stage_ms, device)
     lq = timed("linearize", lambda: linearize_ocp(
         solver.model, solver.ocp, stage, s.dt, X, U,
         sensitivity=s.sensitivity, tangents=s.lin_tangents))
@@ -293,43 +412,248 @@ def phase_main_path(dev):
     timed("linesearch_eval_per_candidate", lambda: evaluate_trajectory(
         solver.model, solver.ocp, stage, s.dt, X + dX, U + dU))
     device["step"] = device_busy(lambda: mpc.step(stage, x_batch, X, U))
-    step_ms = 1e3 * elapsed / WARM_STEPS
-    busy_ms = device["step"]["kernel_ms"]
 
-    result = {
-        "metric": "mpc_solves_per_s",
-        "value": BATCH * WARM_STEPS / elapsed,
-        "unit": "solves/s",
-        "vs_baseline": BATCH * WARM_STEPS / elapsed / 10000.0,
-        "batch": BATCH,
-        "reps": WARM_STEPS,
-        "per_solve_us": 1e6 * elapsed / (BATCH * WARM_STEPS),
-        "compile_s": cold_s,
-        "backend": "bm_k1_cuda",
-        "config": "combined",
-        "mean_violation": viol,
-        "device": torch.cuda.get_device_name(0),
-        "impl": "torch",
-        "step_ms": step_ms,
-        "stage_ms": stage_ms,
-        "device_profile": device,
-        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / step_ms,
-        "k1_launches": launches,
-        "k1_launches_per_step": launches / steps,
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-    }
+    result = run_result(run, "bm_k1", device["step"])
+    result.update(stage_ms=stage_ms, device_profile=device,
+                  k1_launches=run["launches"]["K1"],
+                  k1_launches_per_step=run["launches"]["K1"] / run["steps"])
     log("[b] " + json.dumps(result))
+    return dict(run=run, lq=lq, plq=plq, flags=flags, dX=dX, dU=dU, shift=s.hessian_shift)
+
+
+def rel_err(outs, refs):
+    """max over outputs of max|out - ref| / max|ref| (ref in f64), and the
+    largest absolute difference."""
+    rel, err = 0.0, 0.0
+    for out, ref in zip(outs, refs):
+        diff = (out.double() - ref).abs().max().item()
+        rel = max(rel, diff / max(ref.abs().max().item(), 1e-30))
+        err = max(err, diff)
+    return rel, err
+
+
+def sweep_cost(B, N, nx, nu):
+    """(bytes, flops) of the backward sweep (K2, K3c): per node A, B, d, lx,
+    lu, lxx, luu, lux read and K, kff written once, plus the terminal cost."""
+    per_node = 2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu + nu * nx + nu
+    flops = 2.0 * (2 * nx ** 3 + nx * nx * nu + nx * nu * nu + 2 * nx * nx * nu + 2 * nx * nx
+                   + nx * nu + nu * nx) + nu ** 3 / 3.0 + 2.0 * nu * nu * (nx + 1)
+    return 4 * (B * N * per_node + B * (nx * nx + nx)), B * N * flops
+
+
+NODE_COST = {  # (floats moved, flops) per node, nx = nu = 30, 18 joint and 12 force inputs
+    "K3a": (2454 + 2724, 2.0 * (12 * 12 * 18 + 12 * 12 * 49 + 12 * (18 + 18 * 30 + 18 * 18)
+                                + 30 * 30 * 18 + 30 * 18 * 18 + 30 * 30) + 12 ** 3 / 3.0),
+    "K3b": (3666 + 2760, 2.0 * (30 * 30 + 18 * 30 + 30 * 30 + 18 * 18 + 2 * 18 * 30 * 30
+                                + 18 * 18 * 30 + 18 * 30 * 30 + 2 * 18 * 12 * 18
+                                + 2 * 18 * 18 * 18 + 18 * 30 * 30 + 18 * 18 * 30)),
+    "K3d": (3666 + 60, 2.0 * (30 * 30 + 18 * 18 + 18 * 30 + 30 * 30 + 30 * 30)),
+}
+
+
+SWEEP_PHASES = ("load", "SA_SB_Sd", "Q_terms", "cholesky", "substitutions", "S_update")
+
+
+def sweep_phases(args, symmetrize):
+    """clock64() cycles a node of each phase of the sweep kernel (K2 or K3c)
+    in block 0, from its diagnostic build, on the sweep's inputs ``args``."""
+    import torch
+
+    from qm_door_torch.ops import riccati_fused as rf
+    from qm_door_torch.ops.cuda_build import check_launch
+
+    A, B = args[0], args[1]
+    Bb, N, nx, nu = B.shape
+    K = torch.empty(Bb, N, nu, nx, device=A.device)
+    kff = torch.empty(Bb, N, nu, device=A.device)
+    clocks = torch.zeros(len(SWEEP_PHASES), dtype=torch.int64, device=A.device)
+    err = rf.kernel_fn((rf.PHASE_CLOCKS,))(
+        *(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(), Bb, N, nx, nu, 0.0,
+        int(symmetrize), torch.cuda.current_stream(A.device).cuda_stream, clocks.data_ptr())
+    check_launch("sweep phase clocks", err)
+    torch.cuda.synchronize()
+    return {name: c / N for name, c in zip(SWEEP_PHASES, clocks.tolist())}
+
+
+def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20, **extra):
+    """Hold one kernel against its plain version in f64 on the same inputs,
+    time kernel and plain f32 version, and compute its bound."""
+    import torch
+
+    outs = fn(*args)
+    outs_plain = plain(*args)
+    torch.cuda.synchronize()
+    rel, err = rel_err(outs, refs_f64)
+    rel_plain, _ = rel_err(outs_plain, refs_f64)
+    if not (rel <= tol and np.isfinite(rel)):
+        raise RuntimeError(f"{kid} {name}: relative error {rel:.3e} > {tol} "
+                           f"(plain f32: {rel_plain:.3e})")
+    ms = cuda_ms(lambda: fn(*args), reps=reps)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    row = dict(id=kid, name=name, rel_err=rel, rel_err_plain_f32=rel_plain, bar=tol,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+               bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", **extra)
+    log("[d] " + json.dumps(row))
+    return row, outs
+
+
+def phase_new_kernels(dev, main):
+    """(d) K2, K3a-d on (b)'s warm-iterate data and K1-ll, each against its
+    plain version in f64; timed beside its bound; the refusals."""
+    import torch
+
+    from qm_door_torch.ocp import constraints as cons
+    from qm_door_torch.ops import lq as tl
+    from qm_door_torch.ops import riccati_fused as rf
+    from qm_door_torch.ops.spd_solve import spd_solve_ll, spd_solve_plain
+
+    c = lambda t: t.contiguous()  # noqa: E731
+    f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    lq, plq, flags, shift = main["lq"], main["plq"], main["flags"], main["shift"]
+    X, U, x_batch = (main["run"][k] for k in ("X", "U", "x_batch"))
+    B, N = U.shape[:2]
+    rows = {}
+
+    # K2 on the K1 projection's output, as backend bm_fused feeds it
+    k2_args = [c(t) for t in (plq.A, plq.B, plq.d, plq.lx, plq.lu, plq.lxx, plq.luu, plq.lux,
+                              plq.lxx_f, plq.lx_f)]
+    nbytes, flops = sweep_cost(B, N, 30, 30)
+    rows["K2"], _ = kernel_row(
+        "K2", "riccati_backward_fused", rf.riccati_backward_fused,
+        rf.riccati_backward_fused_plain, k2_args,
+        rf.riccati_backward_fused_plain(*f64(k2_args)), SWEEP_REL_TOL, nbytes, flops,
+        phase_cycles_per_node=sweep_phases(k2_args, True))
+
+    # K3a -> K3b -> K3c -> K3d on the linearization, as backend lq_fused
+    # chains them (each fed the previous kernel's outputs)
+    act = c(cons.velocity_row_mask(flags))
+    fm = c(torch.repeat_interleave(flags, 3, dim=-1))
+    geom_args = [c(t) for t in (lq.A, lq.B, lq.d, lq.g0, lq.Gx, lq.Gv)] + [c(U[:, :, :12]), act, fm]
+    floats, fl = NODE_COST["K3a"]
+    rows["K3a"], (A_bar, B_bar, d_bar, p, P, Px_v) = kernel_row(
+        "K3a", "project_geom", tl.project_geom, tl.project_geom_plain, geom_args,
+        tl.project_geom_plain(*f64(geom_args)), PROJECTION_REL_TOL, 4 * B * N * floats,
+        B * N * fl, reps=50)
+    cost_args = [c(t) for t in (lq.lx, lq.lu, lq.lxx, lq.luu, lq.lux)] + [p, P, Px_v, fm]
+    floats, fl = NODE_COST["K3b"]
+    shifted = lambda fn: lambda *a: fn(*a, shift=shift)  # noqa: E731
+    rows["K3b"], (lxb, lub, lxxb, luub, luxb) = kernel_row(
+        "K3b", "project_cost", shifted(tl.project_cost), shifted(tl.project_cost_plain),
+        cost_args, tl.project_cost_plain(*f64(cost_args), shift=shift), PROJECTION_REL_TOL,
+        4 * B * N * floats, B * N * fl, reps=50)
+    bwd_args = [A_bar, B_bar, d_bar, lxb, lub, lxxb, luub, luxb, c(lq.lxx_f), c(lq.lx_f)]
+    nbytes, flops = sweep_cost(B, N, 30, 30)
+    rows["K3c"], (K, kff) = kernel_row(
+        "K3c", "riccati_backward_ll", tl.riccati_backward_ll, tl.riccati_backward_ll_plain,
+        bwd_args, tl.riccati_backward_ll_plain(*f64(bwd_args)), SWEEP_REL_TOL, nbytes, flops,
+        phase_cycles_per_node=sweep_phases(bwd_args, False))
+    fwd_args = [A_bar, B_bar, d_bar, K, kff, p, P, Px_v, fm, c(x_batch - X[:, 0])]
+    floats, fl = NODE_COST["K3d"]
+    rows["K3d"], _ = kernel_row(
+        "K3d", "riccati_forward_ll", tl.riccati_forward_ll, tl.riccati_forward_ll_plain,
+        fwd_args, tl.riccati_forward_ll_plain(*f64(fwd_args)), SWEEP_REL_TOL,
+        4 * (B * N * floats + 2 * B * 30), B * N * fl)
+
+    # K1-ll: lanes-last SPD solves at the gain shape, then ragged batches
+    rng = np.random.default_rng(1)
+    for batch, n, m, s_ll in ((BATCH, 30, 31, 0.0), (1001, 12, 49, 1e-3), (7, 64, 3, 0.0)):
+        A64, Y64 = spd_batch(rng, batch, n, m)
+        At = torch.tensor(A64, dtype=torch.float32, device=dev).permute(1, 2, 0).contiguous()
+        Yt = torch.tensor(Y64, dtype=torch.float32, device=dev).permute(1, 2, 0).contiguous()
+        ref = spd_solve_plain(torch.tensor(A64, device=dev), torch.tensor(Y64, device=dev),
+                              s_ll).permute(1, 2, 0)
+        if batch == BATCH:
+            rows["K1-ll"], _ = kernel_row(
+                "K1-ll", "spd_solve_ll", lambda At, Yt: (spd_solve_ll(At, Yt),),
+                lambda At, Yt: (spd_solve_plain(At.permute(2, 0, 1), Yt.permute(2, 0, 1))
+                                .permute(1, 2, 0),),
+                [At, Yt], [ref], K1_REL_TOL, 4 * batch * (n * (n + 1) // 2 + 2 * n * m),
+                batch * (n ** 3 / 3.0 + 2.0 * n * n * m), reps=50)
+            continue
+        rel, _ = rel_err([spd_solve_ll(At, Yt, s_ll)], [ref])
+        if not rel <= K1_REL_TOL:
+            raise RuntimeError(f"K1-ll ({n},{m},{batch}) shift {s_ll}: relative error {rel:.3e}")
+    log("[d] K1-ll ragged batches (1001 x 12 x 49 with a shift, 7 x 64 x 3): ok")
+
+    # every new wrapper refuses float64 and a non-contiguous input on the card
+    # (the same shape with its last two axes' strides swapped)
+    strided = lambda t: t.transpose(-1, -2).contiguous().transpose(-1, -2)  # noqa: E731
+    refusals = {
+        "spd_solve_ll": (spd_solve_ll, [At, Yt]),
+        "riccati_backward_fused": (rf.riccati_backward_fused, k2_args),
+        "project_geom": (tl.project_geom, geom_args),
+        "project_cost": (tl.project_cost, cost_args),
+        "riccati_backward_ll": (tl.riccati_backward_ll, bwd_args),
+        "riccati_forward_ll": (tl.riccati_forward_ll, fwd_args),
+    }
+    for name, (fn, args) in refusals.items():
+        before = fn.launches
+        for error, bad in ((TypeError, [a.double() for a in args]),
+                           (ValueError, [strided(args[0])] + list(args[1:]))):
+            try:
+                fn(*bad)
+            except error:
+                continue
+            raise RuntimeError(f"{name} took {'float64' if error is TypeError else 'a '
+                               'non-contiguous input'} instead of raising {error.__name__}")
+        if fn.launches != before:
+            raise RuntimeError(f"{name} counted a launch it refused")
+    log(f"[d] refusals (float64, non-contiguous): ok for {', '.join(refusals)}")
+    return rows
+
+
+def phase_backends(dev, main):
+    """(e) BatchedMpc on bm_fused and lq_fused, driven as (b) drives bm_k1;
+    their LQ stage at (b)'s iterate against bm_k1's step there."""
+    import torch
+
+    from qm_door_torch.ocp import constraints as cons
+    from qm_door_torch.ops.lq import solve_lq_batched
+    from qm_door_torch.solver.riccati import lqr_solve_batched
+    from qm_door_torch.solver.transcription import project_ocp_batched
+
+    lq, plq, flags, shift = main["lq"], main["plq"], main["flags"], main["shift"]
+    X, U, x_batch = (main["run"][k] for k in ("X", "U", "x_batch"))
+    dx0 = x_batch - X[:, 0]
+    stages = {
+        "bm_fused": {
+            "project": lambda: project_ocp_batched(lq, flags, U, shift=shift),
+            "riccati_fused": lambda: lqr_solve_batched(plq, dx0, backend="fused")[:2]},
+        "lq_fused": {
+            "lq_stage": lambda: solve_lq_batched(
+                lq, cons.velocity_row_mask(flags), torch.repeat_interleave(flags, 3, dim=-1),
+                U[:, :, :12], dx0, shift=shift)},
+    }
+    launches = {}
+    for backend, fns in stages.items():
+        run = drive(dev, backend, "e")
+        stage_ms, device = {}, {}
+        timed = timer(stage_ms, device)
+        for name, fn in fns.items():
+            out = timed(name, fn)
+        dX, dU = out
+        mpc, stage = run["mpc"], run["stage"]
+        device["step"] = device_busy(lambda: mpc.step(stage, x_batch, X, U))
+        result = run_result(run, backend, device["step"])
+        result.update(stage_ms=stage_ms, device_profile=device,
+                      dX_vs_bm_k1=(dX - main["dX"]).abs().max().item(),
+                      dU_vs_bm_k1=(dU - main["dU"]).abs().max().item())
+        log("[e] " + json.dumps(result))
+        phase_cross_precision(dev, backend, "e")
+        launches.update({k: v for k, v in run["launches"].items() if v})
     return launches
 
 
-def phase_cross_precision(dev):
+def phase_cross_precision(dev, backend="bm_k1", tag="c"):
     """(c) 3 steps at B = 4, GPU f32 against CPU f64 (lin_tangents="analytic")."""
     import torch
 
     out = {}
     for name, device, dtype in (("gpu_f32", dev, torch.float32),
                                 ("cpu_f64", torch.device("cpu"), torch.float64)):
-        mpc, stage, x_batch = make_problem(device, dtype, 4, "analytic")
+        mpc, stage, x_batch = make_problem(device, dtype, 4, "analytic", backend)
         X, U = mpc.cold_start(stage, x_batch)
         for _ in range(3):
             X, U, stats = mpc.step(stage, x_batch, X, U)
@@ -337,14 +661,30 @@ def phase_cross_precision(dev):
     dX = (out["gpu_f32"][0] - out["cpu_f64"][0]).abs().max().item()
     dU = (out["gpu_f32"][1] - out["cpu_f64"][1]).abs().max().item()
     dF = (out["gpu_f32"][1][..., :12] - out["cpu_f64"][1][..., :12]).abs().max().item()
-    row = {"X_err_max": dX, "U_err_max": dU, "force_err_max_N": dF,
+    row = {"backend": backend, "X_err_max": dX, "U_err_max": dU, "force_err_max_N": dF,
            "cost": {k: v[2][0].tolist() for k, v in out.items()},
            "violation": {k: v[2][1].tolist() for k, v in out.items()},
            "alpha": {k: v[2][2].tolist() for k, v in out.items()}}
-    log("[c] " + json.dumps(row))
+    log(f"[{tag}] " + json.dumps(row))
     if not (dX <= CROSS_DX_MAX and dU <= CROSS_DU_MAX):
-        raise RuntimeError(f"cross precision: max|dX| {dX:.3e} (<= {CROSS_DX_MAX}), "
+        raise RuntimeError(f"cross precision ({backend}): max|dX| {dX:.3e} (<= {CROSS_DX_MAX}), "
                            f"max|dU| {dU:.3e} (<= {CROSS_DU_MAX})")
+
+
+KERNELS = {  # id -> (name, source, TPU kernel it replaces)
+    "K1-ll": ("spd_solve_ll", "qm_door_torch/csrc/spd_solve.cu",
+              "qm_door_tpu/ops/pallas_chol.py:133"),
+    "K2": ("riccati_backward_fused", "qm_door_torch/csrc/riccati_bwd.cu",
+           "qm_door_tpu/ops/pallas_riccati.py:181"),
+    "K3a": ("project_geom", "qm_door_torch/csrc/lq_project.cu",
+            "qm_door_tpu/ops/pallas_lq.py:393"),
+    "K3b": ("project_cost", "qm_door_torch/csrc/lq_project.cu",
+            "qm_door_tpu/ops/pallas_lq.py:420"),
+    "K3c": ("riccati_backward_ll", "qm_door_torch/csrc/riccati_bwd.cu",
+            "qm_door_tpu/ops/pallas_lq.py:446"),
+    "K3d": ("riccati_forward_ll", "qm_door_torch/csrc/lq_forward.cu",
+            "qm_door_tpu/ops/pallas_lq.py:490"),
+}
 
 
 def main():
@@ -366,18 +706,21 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     card = card_line()
 
+    build_all()
     rows = phase_kernels(dev)
-    launches = phase_main_path(dev)
+    main_path = phase_main_path(dev)
     phase_cross_precision(dev)
+    new_rows = phase_new_kernels(dev, main_path)
+    path_launches = phase_backends(dev, main_path)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
-    k1 = {
+    kernels = [{
         "name": "spd_solve",
         "route": "cuda",
         "source": "qm_door_torch/csrc/spd_solve.cu",
         "replaces": "qm_door_tpu/ops/pallas_chol.py:103",
-        "launches": launches,
+        "launches": main_path["run"]["launches"]["K1"],
         "max_abs_err": max(r["max_abs_err"] for r in on_path),
         # one SQP step's K1 work: 1 projection solve + 67 gain solves
         "ms": per_step("ms"),
@@ -386,10 +729,20 @@ def main():
         "bound_by": "bytes" if per_step("bytes_ms") >= per_step("ops_ms") else "operations",
         "library_ms": per_step("library_ms"),
         "shapes": rows,
-    }
+    }]
+    for kid, (name, source, replaces) in KERNELS.items():
+        r = new_rows[kid]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            # the launches of its backend's driven run in (e); K1-ll has no caller
+            "launches": path_launches.get(kid, 0), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "rel_err": r["rel_err"],
+            "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
+            "flops": r["flops"]})
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,7 +17,7 @@ from .device import resolve_device
 from .models.model import RobotModel, from_dict
 from .ocp.problem import OcpConfig, StageData
 from .ocp.reference import TargetTrajectories
-from .solver.transcription import LqProblem
+from .solver.transcription import LqProblem, ProjectedLq
 
 
 def _tensor_fields(cls, d, dtype, device):
@@ -25,7 +25,7 @@ def _tensor_fields(cls, d, dtype, device):
     out = {}
     for f in dataclasses.fields(cls):
         v = d[f.name]
-        if isinstance(v, (bool, int, float, str, tuple)):
+        if v is None or isinstance(v, (bool, int, float, str, tuple)):
             out[f.name] = v
         else:
             out[f.name] = torch.tensor(np.asarray(v), dtype=dtype, device=dev)
@@ -63,3 +63,16 @@ def target_trajectories_from_numpy(d, device=None, dtype=torch.float64) -> Targe
 def lq_from_numpy(d, device=None, dtype=torch.float64) -> LqProblem:
     """LqProblem from the JAX LqProblem's fields (any leading batch dims)."""
     return LqProblem(**_tensor_fields(LqProblem, d, dtype, device))
+
+
+def projected_lq_from_numpy(d, device=None, dtype=torch.float64) -> ProjectedLq:
+    """ProjectedLq from the JAX ProjectedLq's fields (batch-major, structured
+    recovery). The dense recovery maps ``Pu``/``Px`` and the force-tracking
+    ``grasp_gate`` have no place here and are refused; ``P``, ``Px_v`` and
+    ``force_mask`` may be None for data that only the backward sweep reads."""
+    for key in ("Pu", "Px", "grasp_gate"):
+        if d.get(key) is not None:
+            raise ValueError(f"projected_lq_from_numpy: {key} is not held by this "
+                             "package's ProjectedLq (structured recovery, nu = 30)")
+    fields = {f.name: d.get(f.name) for f in dataclasses.fields(ProjectedLq)}
+    return ProjectedLq(**_tensor_fields(ProjectedLq, fields, dtype, device))

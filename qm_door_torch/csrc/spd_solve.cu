@@ -26,6 +26,15 @@
 // past the ragged end returns. n <= 64, any m, as long as one system's
 // n*(n|1) + n*m floats fit in a block's shared memory; otherwise the launch
 // is refused with an error, never run short.
+//
+// K1-ll (qm_door_tpu/ops/pallas_chol.py:spd_solve_ll, lanes-last (n,n,B) and
+// (n,m,B) arrays) is the same kernel entered with other strides: element
+// (i,j) of system b sits at b*sys + (i*cols + j)*elem, with (sys, elem) =
+// (n*cols, 1) batch-major and (1, B) lanes-last. Lanes-last loads are not
+// coalesced within a warp (its lanes walk one system at stride B); the
+// neighbouring warps and blocks read the neighbouring systems, so a sector
+// fetched once mostly serves them from L1/L2. Nothing calls it on the
+// solver's path.
 
 #include <cuda_runtime.h>
 
@@ -39,7 +48,8 @@ __global__ void spd_solve_kernel(const float* __restrict__ A,
                                  const float* __restrict__ Y,
                                  float* __restrict__ X,
                                  int batch, int n, int m, int lda, float shift,
-                                 int systems_per_block) {
+                                 int systems_per_block, long long sys_a, long long sys_y,
+                                 long long elem) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -48,16 +58,16 @@ __global__ void spd_solve_kernel(const float* __restrict__ A,
 
   float* sA = smem + (size_t)warp * (n * lda + n * m);
   float* sY = sA + n * lda;
-  const float* gA = A + sys * n * n;
-  const float* gY = Y + sys * n * m;
-  float* gX = X + sys * n * m;
+  const float* gA = A + sys * sys_a;
+  const float* gY = Y + sys * sys_y;
+  float* gX = X + sys * sys_y;
 
   for (int idx = lane; idx < n * n; idx += kWarp) {
     const int i = idx / n;
     const int j = idx - i * n;
-    if (j <= i) sA[i * lda + j] = gA[idx] + (i == j ? shift : 0.0f);
+    if (j <= i) sA[i * lda + j] = gA[idx * elem] + (i == j ? shift : 0.0f);
   }
-  for (int idx = lane; idx < n * m; idx += kWarp) sY[idx] = gY[idx];
+  for (int idx = lane; idx < n * m; idx += kWarp) sY[idx] = gY[idx * elem];
   __syncwarp();
 
   // Right-looking Cholesky on the lower triangle: L overwrites A.
@@ -87,16 +97,15 @@ __global__ void spd_solve_kernel(const float* __restrict__ A,
     }
   }
   __syncwarp();
-  for (int idx = lane; idx < n * m; idx += kWarp) gX[idx] = sY[idx];
+  for (int idx = lane; idx < n * m; idx += kWarp) gX[idx * elem] = sY[idx];
 }
 
-}  // namespace
-
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes the kernel does not take.
-extern "C" int qm_spd_solve_f32(const float* A, const float* Y, float* X,
-                                int batch, int n, int m, float shift,
-                                void* stream) {
+// cudaErrorInvalidValue for shapes the kernel does not take. Strides in
+// floats: system b of A starts at b*sys_a, of Y and X at b*sys_y; elements
+// within a system are elem apart.
+int launch(const float* A, const float* Y, float* X, int batch, int n, int m, float shift,
+           long long sys_a, long long sys_y, long long elem, cudaStream_t stream) {
   if (n < 1 || n > kMaxN || m < 1 || batch < 0) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const int lda = n | 1;  // odd row stride: lanes walking a column hit distinct banks
@@ -124,7 +133,24 @@ extern "C" int qm_spd_solve_f32(const float* A, const float* Y, float* X,
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (batch + spb - 1) / spb;
-  spd_solve_kernel<<<grid, spb * kWarp, smem, (cudaStream_t)stream>>>(
-      A, Y, X, batch, n, m, lda, shift, spb);
+  spd_solve_kernel<<<grid, spb * kWarp, smem, stream>>>(
+      A, Y, X, batch, n, m, lda, shift, spb, sys_a, sys_y, elem);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1, batch-major: A (batch, n, n), Y and X (batch, n, m).
+extern "C" int qm_spd_solve_f32(const float* A, const float* Y, float* X,
+                                int batch, int n, int m, float shift,
+                                void* stream) {
+  return launch(A, Y, X, batch, n, m, shift, (long long)n * n, (long long)n * m, 1,
+                (cudaStream_t)stream);
+}
+
+// K1-ll, lanes-last: At (n, n, batch), Yt and Xt (n, m, batch).
+extern "C" int qm_spd_solve_ll_f32(const float* At, const float* Yt, float* Xt,
+                                   int batch, int n, int m, float shift,
+                                   void* stream) {
+  return launch(At, Yt, Xt, batch, n, m, shift, 1, 1, batch, (cudaStream_t)stream);
 }

@@ -1,0 +1,172 @@
+"""K2: the whole backward Riccati sweep in one launch (port of
+``qm_door_tpu/ops/pallas_riccati.py:riccati_backward_fused``).
+
+The CUDA kernel is ``qm_door_torch/csrc/riccati_bwd.cu``: one block per
+scenario keeps the carry (S, s) in shared memory over the N nodes and
+writes only K and kff back; the source note has the bound and the design.
+The same kernel, compiled without the input symmetrization, is K3c
+(``ops/lq.py:riccati_backward_ll``), so the sweep's launch and its plain
+version live here and serve both.
+
+:func:`riccati_backward_fused` launches the kernel for CUDA tensors
+(contiguous float32, nx, nu <= 36) and raises for anything it cannot take;
+for CPU tensors it runs :func:`riccati_backward_fused_plain`, the kernel's
+arithmetic (``_ric_bwd_kernel``, inputs symmetrized up front) as torch ops.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import check_launch, load, on_cuda
+from .spd_solve import spd_solve_plain
+
+MAX_DIM = 36
+
+
+def _sym(M):
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+def _mmT_sym(X, Y):
+    """0.5 (X^T Y + Y^T X) for (..., q, p) operands, exactly symmetric (the
+    form of ``pallas_riccati._mmT_sym``)."""
+    return _sym(X.transpose(-1, -2) @ Y)
+
+
+def sweep_plain(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: float, symmetrize: bool):
+    """The backward sweep of K2 (``symmetrize=True``) or K3c (``False``) as
+    batched torch ops over (Bb, N, ...) tensors. Returns K (Bb,N,nu,nx),
+    kff (Bb,N,nu).
+
+    Both form Qxx and Quu in the exactly symmetric product form of
+    ``pallas_riccati._mmT_sym``, so the carry S stays symmetric in floating
+    point, and read S through S^T, as the TPU kernels do. K2 symmetrizes
+    lxx, luu and lxx_f up front; K3c takes them as given and factors Quu
+    through its upper triangle (the TPU's ``_chol_t`` reads rows).
+
+    K3c departs from ``pallas_lq._backward_kernel`` in one place: the TPU
+    kernel forms Qxx = lxx + A^T (S^T A) without symmetrizing, so the skew
+    part of S is carried to the next node through A^T (.) A and grows by
+    about |A|^2 a node. In f64 that stays near roundoff (the parity tests
+    hold this form to the JAX kernel); in f32 it does not (with |A| ~ 1.1
+    over 67 nodes the literal form's K turns NaN,
+    ``tests/test_torch_lq_kernels.py``). The two forms are equal in exact
+    arithmetic.
+    """
+    if symmetrize:
+        lxx, luu, lxx_f = _sym(lxx), _sym(luu), _sym(lxx_f)
+    nx, N = A.shape[-1], A.shape[1]
+    S, s = lxx_f, lx_f
+    Ks, kffs = [None] * N, [None] * N
+    for k in reversed(range(N)):
+        Ak, Bk = A[:, k], B[:, k]
+        AT, BT, ST = Ak.transpose(-1, -2), Bk.transpose(-1, -2), S.transpose(-1, -2)
+        Sd = (ST @ d[:, k, :, None])[..., 0] + s
+        Qx = lx[:, k] + (AT @ Sd[..., None])[..., 0]
+        Qu = lu[:, k] + (BT @ Sd[..., None])[..., 0]
+        SA, SB = ST @ Ak, ST @ Bk
+        Qxx = lxx[:, k] + _mmT_sym(Ak, SA)
+        Quu = luu[:, k] + _mmT_sym(Bk, SB)
+        gain = Quu if symmetrize else Quu.transpose(-1, -2)  # lower triangle = Quu's upper
+        Qux = lux[:, k] + BT @ SA
+        sol = -spd_solve_plain(gain, torch.cat([Qux, Qu[..., None]], dim=-1), shift)
+        K, kff = sol[..., :nx], sol[..., nx]
+        S = Qxx + _mmT_sym(Qux, K)
+        s = Qx + (Qux.transpose(-1, -2) @ kff[..., None])[..., 0]
+        Ks[k], kffs[k] = K, kff
+    return torch.stack(Ks, dim=1), torch.stack(kffs, dim=1)
+
+
+def riccati_backward_fused_plain(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f,
+                                 shift: float = 0.0):
+    """K2's arithmetic as torch ops (see :func:`sweep_plain`)."""
+    return sweep_plain(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift, symmetrize=True)
+
+
+def check_sweep_shapes(name, A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f):
+    """Raise ValueError unless the inputs are batch-major sweep data."""
+    if B.dim() != 4:
+        raise ValueError(f"{name}: B must be (Bb, N, nx, nu), got {tuple(B.shape)}")
+    Bb, N, nx, nu = B.shape
+    want = {"A": (Bb, N, nx, nx), "d": (Bb, N, nx), "lx": (Bb, N, nx), "lu": (Bb, N, nu),
+            "lxx": (Bb, N, nx, nx), "luu": (Bb, N, nu, nu), "lux": (Bb, N, nu, nx),
+            "lxx_f": (Bb, nx, nx), "lx_f": (Bb, nx)}
+    got = {"A": A, "d": d, "lx": lx, "lu": lu, "lxx": lxx, "luu": luu, "lux": lux,
+           "lxx_f": lxx_f, "lx_f": lx_f}
+    for key, shape in want.items():
+        if tuple(got[key].shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(got[key].shape)}, "
+                             f"expected {shape}")
+    if N < 1:
+        raise ValueError(f"{name}: no nodes")
+
+
+PHASE_CLOCKS = "QM_SWEEP_PHASE_CLOCKS"  # the diagnostic build's define
+_fns: dict = {}
+
+
+def kernel_fn(defines=()):
+    """The sweep kernel's C function, from the library built with
+    ``defines`` (``(PHASE_CLOCKS,)`` for the per-phase cycle counts)."""
+    key = tuple(defines)
+    if key not in _fns:
+        fn = load("riccati_bwd", key).qm_riccati_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]
+
+
+def launch_sweep(wrapper, args, shift: float, symmetrize: bool):
+    """Launch the sweep kernel on CUDA tensors ``args`` (checked by the
+    caller) and count the launch on ``wrapper.launches``."""
+    name = wrapper.__name__
+    A, B = args[0], args[1]
+    Bb, N, nx, nu = B.shape
+    if nx > MAX_DIM or nu > MAX_DIM:
+        raise ValueError(f"{name}: nx = {nx}, nu = {nu}; the kernel takes at most {MAX_DIM}")
+    K = torch.empty((Bb, N, nu, nx), dtype=A.dtype, device=A.device)
+    kff = torch.empty((Bb, N, nu), dtype=A.dtype, device=A.device)
+    if Bb == 0:
+        return K, kff
+    with torch.cuda.device(A.device):
+        err = kernel_fn()(*(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(),
+                          Bb, N, nx, nu, float(shift), int(symmetrize),
+                          torch.cuda.current_stream(A.device).cuda_stream, None)
+    check_launch(name, err)
+    wrapper.launches += 1
+    return K, kff
+
+
+def riccati_backward_fused(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: float = 0.0):
+    """Full backward Riccati sweep in one kernel (K2).
+
+    Batch-major inputs: A (Bb, N, nx, nx), B (Bb, N, nx, nu), d/lx (Bb, N, nx),
+    lu (Bb, N, nu), lxx (Bb, N, nx, nx), luu (Bb, N, nu, nu),
+    lux (Bb, N, nu, nx), lxx_f (Bb, nx, nx), lx_f (Bb, nx). Returns
+    (K (Bb, N, nu, nx), kff (Bb, N, nu)). CUDA tensors launch the kernel
+    (counted by ``riccati_backward_fused.launches``); CPU tensors run
+    :func:`riccati_backward_fused_plain`.
+    """
+    args = (A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f)
+    check_sweep_shapes("riccati_backward_fused", *args)
+    if not on_cuda("riccati_backward_fused", *args):
+        return riccati_backward_fused_plain(*args, shift=shift)
+    return launch_sweep(riccati_backward_fused, args, shift, symmetrize=True)
+
+
+riccati_backward_fused.launches = 0
+
+
+def riccati_backward_fused_lq(plq, shift: float = 0.0):
+    """ProjectedLq adapter for :func:`riccati_backward_fused` (a terminal
+    cost without a batch axis is broadcast over the scenarios)."""
+    Bb = plq.A.shape[0]
+    lxx_f = plq.lxx_f.expand(Bb, *plq.lxx_f.shape[-2:]) if plq.lxx_f.dim() == 2 \
+        else plq.lxx_f
+    lx_f = plq.lx_f.expand(Bb, plq.lx_f.shape[-1]) if plq.lx_f.dim() == 1 else plq.lx_f
+    args = (plq.A, plq.B, plq.d, plq.lx, plq.lu, plq.lxx, plq.luu, plq.lux, lxx_f, lx_f)
+    return riccati_backward_fused(*(t.contiguous() for t in args), shift=shift)

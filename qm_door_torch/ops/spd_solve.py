@@ -13,6 +13,8 @@ symmetric matrices.
 :func:`spd_solve` launches the kernel for CUDA tensors (f32, n <= 64) and
 raises for anything it cannot take; for CPU tensors it runs
 :func:`spd_solve_plain`, the same algorithm as batched torch ops.
+:func:`spd_solve_ll` (K1-ll) is the same kernel on lanes-last arrays,
+entered with other strides.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import ctypes
 
 import torch
 
+from .cuda_build import check_launch, load, on_cuda
+
 MAX_N = 64
-_CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 def spd_solve_plain(A, Y, shift: float = 0.0):
@@ -66,18 +69,26 @@ def shared_bytes_per_system(n: int, m: int) -> int:
 _lib = None
 
 
-def _kernel():
+def _lib_fn(name):
     global _lib
     if _lib is None:
-        from .cuda_build import load
-
         lib = load("spd_solve")
-        lib.qm_spd_solve_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        lib.qm_spd_solve_f32.restype = ctypes.c_int
+        for fn in (lib.qm_spd_solve_f32, lib.qm_spd_solve_ll_f32):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
-    return _lib.qm_spd_solve_f32
+    return getattr(_lib, name)
+
+
+def _launch(name, fn, A, Y, X, batch, n, m, shift):
+    with torch.cuda.device(A.device):
+        err = _lib_fn(fn)(A.data_ptr(), Y.data_ptr(), X.data_ptr(), batch, n, m, float(shift),
+                          torch.cuda.current_stream(A.device).cuda_stream)
+    check_launch(name, err, f" of n = {n}, m = {m}: one system needs "
+                 f"{shared_bytes_per_system(n, m)} B of shared memory, more than a "
+                 "block may hold on this card")
 
 
 def spd_solve(A, Y, shift: float = 0.0):
@@ -92,16 +103,10 @@ def spd_solve(A, Y, shift: float = 0.0):
             or Y.shape[:2] != A.shape[:2]:
         raise ValueError(f"spd_solve: shapes {tuple(A.shape)} and {tuple(Y.shape)} "
                          "are not (B,n,n) and (B,n,m)")
-    if A.device != Y.device or A.dtype != Y.dtype:
-        raise ValueError("spd_solve: A and Y must share device and dtype")
     if not (A.is_contiguous() and Y.is_contiguous()):
         raise ValueError("spd_solve: A and Y must be contiguous")
-    if A.device.type == "cpu":
+    if not on_cuda("spd_solve", A, Y):
         return spd_solve_plain(A, Y, shift)
-    if A.device.type != "cuda":
-        raise ValueError(f"spd_solve: no kernel for device {A.device}")
-    if A.dtype != torch.float32:
-        raise TypeError(f"spd_solve: the CUDA kernel takes float32, not {A.dtype}")
     batch, n, m = Y.shape
     if n > MAX_N:
         raise ValueError(f"spd_solve: n = {n} > {MAX_N}")
@@ -110,18 +115,41 @@ def spd_solve(A, Y, shift: float = 0.0):
     X = torch.empty_like(Y)
     if batch == 0:
         return X
-    fn = _kernel()
-    with torch.cuda.device(A.device):
-        err = fn(A.data_ptr(), Y.data_ptr(), X.data_ptr(), batch, n, m, float(shift),
-                 torch.cuda.current_stream(A.device).cuda_stream)
-    if err == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"spd_solve: the kernel refused n = {n}, m = {m}: one system "
-                         f"needs {shared_bytes_per_system(n, m)} B of shared memory, "
-                         "more than a block may hold on this card")
-    if err != 0:
-        raise RuntimeError(f"spd_solve: kernel launch failed with CUDA error {err}")
+    _launch("spd_solve", "qm_spd_solve_f32", A, Y, X, batch, n, m, shift)
     spd_solve.launches += 1
     return X
 
 
 spd_solve.launches = 0
+
+
+def spd_solve_ll(At, Yt, shift: float = 0.0):
+    """K1-ll: the same solve on lanes-last arrays (port of
+    ``pallas_chol.py:spd_solve_ll``): At (n, n, B), Yt (n, m, B) -> (n, m, B).
+
+    CUDA tensors (contiguous float32, n <= 64, any B) enter the K1 kernel
+    with batch stride 1 and element stride B, counted by
+    ``spd_solve_ll.launches``; CPU tensors take :func:`spd_solve_plain` on
+    the batch-major views.
+    """
+    if At.dim() != 3 or Yt.dim() != 3 or At.shape[0] != At.shape[1] \
+            or Yt.shape[0] != At.shape[0] or Yt.shape[2] != At.shape[2]:
+        raise ValueError(f"spd_solve_ll: shapes {tuple(At.shape)} and {tuple(Yt.shape)} "
+                         "are not (n,n,B) and (n,m,B)")
+    if not on_cuda("spd_solve_ll", At, Yt):
+        X = spd_solve_plain(At.permute(2, 0, 1), Yt.permute(2, 0, 1), shift)
+        return X.permute(1, 2, 0).contiguous()
+    n, m, batch = Yt.shape
+    if n > MAX_N:
+        raise ValueError(f"spd_solve_ll: n = {n} > {MAX_N}")
+    if m < 1:
+        raise ValueError("spd_solve_ll: Yt has no columns")
+    Xt = torch.empty_like(Yt)
+    if batch == 0:
+        return Xt
+    _launch("spd_solve_ll", "qm_spd_solve_ll_f32", At, Yt, Xt, batch, n, m, shift)
+    spd_solve_ll.launches += 1
+    return Xt
+
+
+spd_solve_ll.launches = 0

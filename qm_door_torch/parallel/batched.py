@@ -7,16 +7,21 @@ from __future__ import annotations
 
 from .. import set_full_f32_matmuls
 from ..ocp.problem import StageData
-from ..solver.batched_sqp import batched_sqp_iteration
+from ..solver.batched_sqp import BACKENDS, batched_sqp_iteration
 from ..solver.sqp import SqpSolver
 
 
 class BatchedMpc:
-    """B scenarios advanced in lock-step, sharing one StageData."""
+    """B scenarios advanced in lock-step, sharing one StageData. ``backend``
+    picks the LQ stage of every step (``solver/batched_sqp.py``: "bm_k1",
+    "bm_fused" or "lq_fused")."""
 
-    def __init__(self, solver: SqpSolver):
+    def __init__(self, solver: SqpSolver, backend: str = "bm_k1"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
         set_full_f32_matmuls()
         self.solver = solver
+        self.backend = backend
 
     def cold_start(self, stage: StageData, x_init_batch):
         """Constant-state, weight-compensating-input initializer per scenario."""
@@ -30,4 +35,4 @@ class BatchedMpc:
         """One batched SQP/MPC iteration -> (X, U, (cost, violation, step_size))."""
         s = self.solver
         return batched_sqp_iteration(s.model, s.ocp, stage, s.settings.dt, s.settings,
-                                     x_init_batch, X, U)
+                                     x_init_batch, X, U, backend=self.backend)

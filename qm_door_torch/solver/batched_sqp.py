@@ -4,24 +4,37 @@ qm_door_tpu/solver/batched_sqp.py).
 One iteration for B scenarios in lock-step:
 
 - linearize: ``transcription.linearize_ocp``, vmapped over (B, N);
-- project: ``transcription.project_ocp_batched``, one (B*N)-batched SPD
-  solve;
-- Riccati: ``riccati.lqr_solve_batched``, 67 (N) batched gain solves;
+- the LQ stage (project + Riccati), by ``backend``:
+
+  ============  ==========================================  ===================
+  backend       LQ stage                                    JAX backend
+  ============  ==========================================  ===================
+  ``bm_k1``     ``transcription.project_ocp_batched`` (one  ``bm_pallas`` /
+  (default)     K1 solve over B*N nodes) + ``riccati.       ``bm_xla``
+                lqr_solve_batched`` (N K1 gain solves)
+  ``bm_fused``  the same projection + K2, the whole         ``bm_fused``
+                backward sweep in one kernel
+  ``lq_fused``  ``ops.lq.solve_lq_batched``: K3a, K3b       ``pallas``
+                (projection), K3c (backward), K3d
+                (forward); nu = 30 only
+  ============  ==========================================  ===================
 - linesearch: the filter linesearch over the alpha grid with an early exit
   — one batched trajectory evaluation per candidate, stopping as soon as
   every scenario has accepted a step (one host sync per candidate after the
   first). The accepted alpha per scenario is the largest accepted
   candidate, as in the full sweep.
 
-The SPD solves go to kernel K1 when the tensors are on CUDA and to its plain
-version on the CPU (``ops/spd_solve.py`` decides by device).
+Every kernel runs when the tensors are on CUDA and its plain version on the
+CPU (each wrapper in ``ops/`` decides by device).
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.model import RobotModel
+from ..ocp import constraints as cons
 from ..ocp.problem import OcpConfig, StageData
+from ..ops.lq import solve_lq_batched
 from .riccati import lqr_solve_batched
 from .sqp import evaluate_trajectory
 from .transcription import NU, linearize_ocp, project_ocp_batched
@@ -40,14 +53,22 @@ def _accept(cost0, viol0, costs, viols, alpha, settings):
     return ok & torch.isfinite(costs) & torch.isfinite(viols)
 
 
+BACKENDS = ("bm_k1", "bm_fused", "lq_fused")
+
+
 def batched_sqp_iteration(model: RobotModel, ocp: OcpConfig, stage: StageData,
-                          dt, settings, x_init, X, U):
+                          dt, settings, x_init, X, U, backend: str = "bm_k1"):
     """One SQP iteration for B scenarios sharing ``stage``.
 
-    x_init (B, 30); X (B, N+1, 30); U (B, N, 30). Returns (X, U, stats) with
-    stats = (cost, violation, step_size), each (B,). The inputs are not
-    modified.
+    x_init (B, 30); X (B, N+1, 30); U (B, N, 30). ``backend`` picks the LQ
+    stage (module docstring). Returns (X, U, stats) with stats = (cost,
+    violation, step_size), each (B,). The inputs are not modified.
     """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
+    if backend == "lq_fused" and U.shape[-1] != NU:
+        raise ValueError(f"backend 'lq_fused' takes nu = 30 only (its kernels hard-code "
+                         f"30/30/18/12), not nu = {U.shape[-1]}")
     if U.shape[-1] != NU:
         raise NotImplementedError("only the 30-input problem is ported")
     B, N = U.shape[0], U.shape[1]
@@ -55,8 +76,14 @@ def batched_sqp_iteration(model: RobotModel, ocp: OcpConfig, stage: StageData,
                        sensitivity=settings.sensitivity, tangents=settings.lin_tangents)
     flags = stage.contact_flags[:N].expand(B, N, 4)
     dx0 = x_init - X[:, 0]
-    plq = project_ocp_batched(lq, flags, U, shift=settings.hessian_shift)
-    dX, dU, _, _ = lqr_solve_batched(plq, dx0)
+    if backend == "lq_fused":
+        dX, dU = solve_lq_batched(lq, cons.velocity_row_mask(flags),
+                                  torch.repeat_interleave(flags, 3, dim=-1), U[:, :, :12], dx0,
+                                  shift=settings.hessian_shift)
+    else:
+        plq = project_ocp_batched(lq, flags, U, shift=settings.hessian_shift)
+        dX, dU, _, _ = lqr_solve_batched(
+            plq, dx0, backend="fused" if backend == "bm_fused" else "k1")
 
     # baseline merit from the linearization byproducts
     cost0 = lq.cost                                                  # (B,)

@@ -6,15 +6,18 @@ The LQ problem is defect-aware multiple shooting:
        + terminal 1/2 dx'lxx_f dx + lx_f'dx
   s.t. dx_{k+1} = A_k dx_k + B_k du_k + d_k,   dx_0 given.
 
-The sweeps are Python loops over the N nodes, each step batched over the B
-scenarios; the gain solve of every backward step is one call to K1
-(``ops/spd_solve.py``).
+Backend "k1": the sweeps are Python loops over the N nodes, each step
+batched over the B scenarios; the gain solve of every backward step is one
+call to K1 (``ops/spd_solve.py``). Backend "fused": the whole backward
+sweep is one launch of K2 (``ops/riccati_fused.py``), then the same forward
+loop.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.spatial import fmm, fmv
+from ..ops.riccati_fused import riccati_backward_fused_lq
 from ..ops.spd_solve import spd_solve
 from .transcription import ProjectedLq
 
@@ -68,9 +71,22 @@ def riccati_forward_batched(lq: ProjectedLq, K, kff, dx0):
     return torch.stack(dXs, dim=1), torch.stack(dUs, dim=1)
 
 
-def lqr_solve_batched(lq: ProjectedLq, dx0):
+RICCATI_BACKENDS = ("k1", "fused")
+
+
+def lqr_solve_batched(lq: ProjectedLq, dx0, backend: str = "k1"):
     """Backward + forward sweeps. lq carries (B, N, ...); dx0 (B, nx).
-    Returns (dX, dU, K, kff)."""
-    K, kff = riccati_backward_batched(lq)
+    Returns (dX, dU, K, kff).
+
+    backend "k1": the scan over the nodes with one K1 gain solve each;
+    "fused": K2, the whole backward sweep in one kernel, with shift 0 (the
+    Hessian shift already sits in the projected luu), as the JAX package's
+    ``lqr_solve_batched(backend="fused")``."""
+    if backend == "k1":
+        K, kff = riccati_backward_batched(lq)
+    elif backend == "fused":
+        K, kff = riccati_backward_fused_lq(lq)
+    else:
+        raise ValueError(f"backend={backend!r}: expected one of {RICCATI_BACKENDS}")
     dX, dU = riccati_forward_batched(lq, K, kff, dx0)
     return dX, dU, K, kff

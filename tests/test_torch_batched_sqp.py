@@ -1,7 +1,11 @@
 """The torch port's whole batched SQP iteration against the JAX package's
-batch-major backends (bm_xla: XLA Cholesky; bm_pallas: the Pallas SPD
-kernel, here in interpret mode), float64 on the CPU, at the JAX test's own
-bar (tests/test_batched_sqp.py): rtol = 1e-8, atol = 1e-9."""
+batch-major backends, float64 on the CPU, at the JAX test's own bar
+(tests/test_batched_sqp.py): rtol = 1e-8, atol = 1e-9. Port ``bm_k1``
+against JAX ``bm_xla`` (XLA Cholesky) and ``bm_pallas`` (the Pallas SPD
+kernel, here in interpret mode); ``bm_fused`` against JAX ``bm_fused``;
+``lq_fused`` against JAX ``bm_xla`` (JAX's own ``pallas`` backend passes no
+``interpret`` and cannot run on the CPU; its LQ stage is held against
+``pallas_lq.solve_lq_batched`` in tests/test_torch_solver.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +26,7 @@ def P():
     return Problem(B=3, seed=3, x_scale=0.03)
 
 
-def _t_step(P, X=None, U=None, dtype=F64):
+def _t_step(P, X=None, U=None, dtype=F64, backend="bm_k1"):
     tm, to = P.tmodel, P.tocp
     stage = P.tstage
     if dtype != F64:
@@ -34,16 +38,23 @@ def _t_step(P, X=None, U=None, dtype=F64):
     cast = lambda a: torch.tensor(np.asarray(a), dtype=dtype)  # noqa: E731
     return t_bsqp.batched_sqp_iteration(
         tm, to, stage, P.tcfg.sqp.dt, t_settings(P.tcfg.sqp),
-        cast(P.xb), cast(P.X if X is None else X), cast(P.U if U is None else U))
+        cast(P.xb), cast(P.X if X is None else X), cast(P.U if U is None else U),
+        backend=backend)
 
 
-@pytest.mark.parametrize("backend", ["bm_xla", "bm_pallas"])
+# case -> (JAX backend, port backend)
+CASES = {"bm_xla": ("bm_xla", "bm_k1"), "bm_pallas": ("bm_pallas", "bm_k1"),
+         "bm_fused": ("bm_fused", "bm_fused"), "lq_fused": ("bm_xla", "lq_fused")}
+
+
+@pytest.mark.parametrize("backend", list(CASES))
 def test_iteration_matches_jax(P, backend):
+    j_backend, t_backend = CASES[backend]
     settings = j_settings(P.jcfg.sqp)
     j_fn = jax.jit(lambda x, X, U: j_bsqp.batched_sqp_iteration(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend=backend))
+        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend=j_backend))
     Xj, Uj, sj = j_fn(jnp.asarray(P.xb), jnp.asarray(P.X), jnp.asarray(P.U))
-    Xt, Ut, st = _t_step(P)
+    Xt, Ut, st = _t_step(P, backend=t_backend)
     tol = dict(rtol=1e-8, atol=1e-9)
     np.testing.assert_allclose(to_np(Xt), np.asarray(Xj), err_msg="X", **tol)
     np.testing.assert_allclose(to_np(Ut), np.asarray(Uj), err_msg="U", **tol)
@@ -68,6 +79,29 @@ def test_accept_rule_matches_jax(P):
                          jnp.asarray(0.5), j_settings(P.jcfg.sqp))
     np.testing.assert_array_equal(to_np(out), np.asarray(ref))
     assert 0 < int(out.sum()) < n
+
+
+@pytest.mark.parametrize("backend", ["nope", "pallas", "bm_pallas"])
+def test_unknown_backend_is_refused(P, backend):
+    with pytest.raises(ValueError, match="backend"):
+        _t_step(P, backend=backend)
+    with pytest.raises(ValueError, match="backend"):
+        BatchedMpc(SqpSolver(P.tmodel, P.tocp, P.tcfg), backend=backend)
+
+
+def test_lq_fused_refuses_the_force_tracking_width(P):
+    U36 = np.zeros(P.U.shape[:-1] + (36,))
+    with pytest.raises(ValueError, match="nu = 30"):
+        _t_step(P, U=U36, backend="lq_fused")
+
+
+@pytest.mark.parametrize("backend", ["bm_fused", "lq_fused"])
+def test_batched_mpc_passes_the_backend_through(P, backend):
+    mpc = BatchedMpc(SqpSolver(P.tmodel, P.tocp, P.tcfg), backend=backend)
+    Xm, Um, sm = mpc.step(P.tstage, P.t(P.xb), P.t(P.X), P.t(P.U))
+    Xi, Ui, si = _t_step(P, backend=backend)
+    assert torch.equal(Xm, Xi) and torch.equal(Um, Ui)
+    assert all(torch.equal(a, b) for a, b in zip(sm, si))
 
 
 def test_batched_mpc_step_is_the_iteration_and_leaves_inputs(P):

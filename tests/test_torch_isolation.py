@@ -1,5 +1,7 @@
 """The torch port stands alone: qm_door_torch and chip_smoke.py import
-neither JAX, flax nor the JAX package (qm_door_tpu)."""
+neither JAX, flax nor the JAX package (qm_door_tpu). And no kernel wrapper
+gives way: nothing in ``qm_door_torch/ops`` catches an exception, so a
+launch error can only raise."""
 import ast
 import os
 import pkgutil
@@ -70,3 +72,17 @@ def test_source_has_no_jax_import(path):
             args = [a.value for a in node.args if isinstance(a, ast.Constant)]
             bad += [a for a in args if isinstance(a, str) and _forbidden(a)]
     assert bad == []
+
+
+def _ops_sources():
+    ops = os.path.join(ROOT, "qm_door_torch", "ops")
+    return sorted(os.path.join(ops, n) for n in os.listdir(ops) if n.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", _ops_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_wrapper_catches_a_launch_error(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    handlers = [node.lineno for node in ast.walk(tree)
+                if isinstance(node, (ast.Try, getattr(ast, "TryStar", ast.Try)))]
+    assert handlers == [], f"try/except at lines {handlers}"

@@ -1,6 +1,7 @@
 """K1 (qm_door_torch/ops/spd_solve.py): the plain version against the JAX
-kernel in interpret mode and its XLA reference, in float64 at 1e-10; the
-wrapper's dispatch and input checks on the CPU. The CUDA kernel itself is
+kernel in interpret mode and its XLA reference, in float64 at 1e-10; K1-ll
+(``spd_solve_ll``, lanes-last) against JAX's ``spd_solve_ll``; the
+wrappers' dispatch and input checks on the CPU. The CUDA kernel itself is
 held against the plain version on the card by chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -8,8 +9,9 @@ import pytest
 import torch
 
 from qm_door_torch.ops import cuda_build
-from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_plain
+from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_ll, spd_solve_plain
 from qm_door_tpu.ops.pallas_chol import spd_solve as j_spd_solve
+from qm_door_tpu.ops.pallas_chol import spd_solve_ll as j_spd_solve_ll
 from qm_door_tpu.ops.pallas_chol import spd_solve_reference as j_spd_reference
 from torch_parity import to_np
 
@@ -32,6 +34,32 @@ def test_plain_matches_jax_kernel_and_reference(shape, shift):
     np.testing.assert_allclose(out, np.asarray(j_spd_solve(jA, jY, shift=shift, interpret=True)),
                                **TOL)
     np.testing.assert_allclose(out, np.asarray(j_spd_reference(jA, jY, shift=shift)), **TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lanes_last_matches_jax(shape):
+    A, Y = _spd(np.random.default_rng(sum(shape) + 1), *shape)
+    At, Yt = np.transpose(A, (1, 2, 0)), np.transpose(Y, (1, 2, 0))
+    before = spd_solve_ll.launches
+    out = spd_solve_ll(torch.as_tensor(At), torch.as_tensor(Yt), shift=1e-3)
+    assert spd_solve_ll.launches == before
+    assert out.shape == Yt.shape and out.is_contiguous()
+    ref = j_spd_solve_ll(jnp.asarray(At), jnp.asarray(Yt), shift=1e-3, interpret=True)
+    np.testing.assert_allclose(to_np(out), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(
+        to_np(out), np.transpose(to_np(spd_solve_plain(torch.as_tensor(A),
+                                                       torch.as_tensor(Y), 1e-3)), (1, 2, 0)),
+        **TOL)
+
+
+@pytest.mark.parametrize("bad", ["rank", "square", "batch", "rows", "dtype"])
+def test_lanes_last_wrapper_rejects_bad_inputs(bad):
+    At = torch.eye(4, dtype=torch.float64)[:, :, None].repeat(1, 1, 3)
+    Yt = torch.ones(4, 2, 3, dtype=torch.float64)
+    args = {"rank": (At[..., 0], Yt), "square": (At[:3], Yt), "batch": (At, Yt[..., :2]),
+            "rows": (At, Yt[:3]), "dtype": (At, Yt.float())}[bad]
+    with pytest.raises(ValueError):
+        spd_solve_ll(*args)
 
 
 def test_plain_reads_the_lower_triangle_only():
@@ -83,3 +111,10 @@ def test_library_name_follows_the_source():
     path = cuda_build._library_path("spd_solve")
     assert path.startswith(cuda_build.BUILD_DIR) and path.endswith(".so")
     assert path == cuda_build._library_path("spd_solve")
+
+
+def test_a_diagnostic_build_gets_its_own_library():
+    plain = cuda_build._library_path("riccati_bwd")
+    diag = cuda_build._library_path("riccati_bwd", ("QM_SWEEP_PHASE_CLOCKS",))
+    assert plain != diag and diag.startswith(cuda_build.BUILD_DIR)
+    assert "-DQM_SWEEP_PHASE_CLOCKS" in cuda_build._flags(("QM_SWEEP_PHASE_CLOCKS",))

@@ -113,6 +113,27 @@ def test_project_and_riccati_match_jax(P, j_lq, t_lq_from_jax, flags):
         np.testing.assert_allclose(to_np(a), np.asarray(b), err_msg=name, **TOL)
 
 
+def test_lq_fused_stage_matches_jax_pallas_lq(P, j_lq, t_lq_from_jax, flags):
+    """The ``lq_fused`` backend's LQ stage (ops/lq.py, K3a-d) on the
+    JAX-linearized trot problem against ``pallas_lq.solve_lq_batched`` in
+    interpret mode (JAX's ``pallas`` backend), with the masks and force
+    reference ``batched_sqp_iteration`` hands it."""
+    from qm_door_torch.ops.lq import solve_lq_batched as t_solve
+    from qm_door_tpu.ocp import constraints as j_cons
+    from qm_door_tpu.ops.pallas_lq import solve_lq_batched as j_solve
+
+    dx0 = P.xb - P.X[:, 0]
+    act = np.asarray(j_cons.velocity_row_mask(jnp.asarray(flags)))
+    fm = np.repeat(flags, 3, axis=-1)
+    dXj, dUj = j_solve(j_lq, jnp.asarray(act), jnp.asarray(fm), jnp.asarray(P.U[:, :, :12]),
+                       jnp.asarray(dx0), shift=1e-5, interpret=True)
+    dX, dU = t_solve(t_lq_from_jax, P.t(act), P.t(fm), P.t(P.U[:, :, :12]), P.t(dx0),
+                     shift=1e-5)
+    tol = dict(rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(to_np(dX), np.asarray(dXj), err_msg="dX", **tol)
+    np.testing.assert_allclose(to_np(dU), np.asarray(dUj), err_msg="dU", **tol)
+
+
 def test_projection_rejects_force_tracking_width(t_lq_from_jax, flags, P):
     with pytest.raises(NotImplementedError):
         t_tr.project_ocp_batched(t_lq_from_jax, P.t(flags), torch.zeros(2, P.N, 36,
