@@ -8,16 +8,25 @@ source in qm_door_torch/csrc first, one nvcc each, all at once. Exits
 non-zero, with no result line, when CUDA is unavailable or any phase fails.
 
 Phases:
-  (a) kernels: builds K1 (the SPD solve) and holds it against its plain
-      torch version and an f64 plain solve at the main path's shapes, on SPD
-      inputs of condition ~1e3 (pass: max relative error <= 1e-4); times
-      kernel, plain version and torch.linalg (cholesky + cholesky_solve);
-      checks ragged batches, n = 1 and 64, odd RHS widths, a shift, and
-      that the wrapper refuses float64, n > 64 and too much shared memory.
+  (a) kernels: builds K1 (the SPD solve) and holds the variant its
+      dispatch picks (reg16 at the projection shape, reg32 at the gain
+      shape, smem at the off-path WBC Gram shape) against its plain torch
+      version and an f64 plain solve, on SPD inputs of condition ~1e3 (pass:
+      max relative error <= 1e-4); at the two main-path shapes also the
+      smem kernel on the same inputs, the two timed in turns (smem, reg,
+      reg, smem), each with CUDA events over chained calls (`ms`, as every
+      kernel) and in a CUDA graph (`ms_graph`), beside the plain version
+      and torch.linalg (cholesky + cholesky_solve); checks ragged batches
+      (half-filled blocks), n = 1,
+      16, 17, 32, 33 and 64, m = 64 and 65, odd RHS widths, a shift, a
+      misaligned base, NaN above the diagonal (never read), that each goes
+      to the variant k1_variant names, and that the wrapper refuses
+      float64, n > 64 and too much shared memory.
   (b) main path: BatchedMpc at B = 384, N = 67 (AlienGo+Z1 trot,
       lin_tangents="analytic_bf16", sensitivity="frozen", 2 linesearch
       candidates, seed-0 perturbations x 0.02): one cold step and 20 warm
-      steps, per-stage host times, K1 launches (exactly 68 a step), mean
+      steps, per-stage host times, K1 launches (exactly 68 a step: 67
+      reg32 + 1 reg16, no smem), mean
       violation <= 1e-5; then each stage and one step once more under
       torch.profiler for device busy time, device op count and the card's
       idle share of a step (after the timed steps, so they carry no
@@ -31,11 +40,12 @@ Phases:
       version in f64 on the same inputs (pass: relative max error <= 1e-4
       for K3a/K3b, <= 1e-3 for the sweeps; the plain f32 error printed
       beside), timed with CUDA events next to its bound and its plain time;
-      K1-ll (lanes-last K1) against spd_solve_plain with ragged batches;
+      K1-ll (lanes-last K1, through K1's dispatch: reg32 at 384 x 30 x 31)
+      against spd_solve_plain with ragged batches;
       each new wrapper refuses float64 and a non-contiguous input.
   (e) backends: BatchedMpc(backend="bm_fused") and ("lq_fused") driven as
       (b) drives bm_k1 (one cold and 20 warm steps, exact launches a step:
-      bm_fused K1 1 + K2 1; lq_fused K3a, K3b, K3c, K3d 1 each, no K1;
+      bm_fused K1 1 (reg16) + K2 1; lq_fused K3a, K3b, K3c, K3d 1 each, no K1;
       mean violation <= 1e-5), their LQ stage's host ms and device busy
       ms at (b)'s iterate and its max|dX|, |dU| difference from bm_k1 there,
       and (c)'s cross-precision check for each.
@@ -93,6 +103,32 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls=50, replays=5):
+    """Device ms per call of `fn` with no host in the loop: `calls` calls
+    captured in one CUDA graph (after a warm-up call on a side stream),
+    replayed `replays` times between two CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def device_busy(fn):
     """One call of `fn` under torch.profiler: the union of the device
     intervals it traced (kernels, copies, fills) in ms, their count, and the
@@ -130,14 +166,15 @@ def spd_batch(rng, batch, n, m):
 
 
 def build_all():
-    """Build every kernel source of qm_door_torch/csrc and the sweep kernel's
-    diagnostic variant, one nvcc each, all started together; log each one's
-    ptxas report."""
+    """Build every kernel source of qm_door_torch/csrc and the diagnostic
+    build of the sweep kernel, one nvcc each, all started together; log each
+    one's ptxas report (kept from the build when a library is reused) and
+    fail unless it shows the four K1 register kernels without spills."""
     from qm_door_torch.ops import cuda_build
-    from qm_door_torch.ops.riccati_fused import PHASE_CLOCKS
+    from qm_door_torch.ops import riccati_fused
 
     libs = [(n[:-3], ()) for n in sorted(os.listdir(cuda_build.CSRC)) if n.endswith(".cu")]
-    libs.append(("riccati_bwd", (PHASE_CLOCKS,)))
+    libs += [("riccati_bwd", (riccati_fused.PHASE_CLOCKS,))]
     t0 = time.time()
     with ThreadPoolExecutor(len(libs)) as pool:
         outs = list(pool.map(lambda lib: cuda_build.build(*lib), libs))
@@ -145,6 +182,26 @@ def build_all():
     for (name, defines), out in zip(libs, outs):
         for line in out.splitlines():
             log(f"nvcc {' -D'.join((name,) + defines)}: {line}")
+    spills = reg_variant_spills(outs[libs.index(("spd_solve", ()))])
+    log(f"K1 register variants, bytes of spill stores: {json.dumps(spills)}")
+    if len(spills) != 4 or any(spills.values()):
+        raise RuntimeError(f"K1 register variants: expected 4 kernels without spills, "
+                           f"ptxas reports {spills}")
+
+
+def reg_variant_spills(ptxas_out):
+    """Bytes of spill stores of each spd_reg_kernel instantiation in a ptxas
+    -v report ("Function properties for <name>" then "... N bytes spill
+    stores ...")."""
+    spills, current = {}, None
+    for line in ptxas_out.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif current and "spill stores" in line:
+            if "spd_reg_kernel" in current:
+                spills[current] = int(line.split("bytes spill stores")[0].split(",")[-1])
+            current = None
+    return spills
 
 
 def launch_counters():
@@ -159,14 +216,39 @@ def launch_counters():
 def reset_launches():
     for wrapper in launch_counters().values():
         wrapper.launches = 0
+        for variant in getattr(wrapper, "launches_by_variant", {}):
+            wrapper.launches_by_variant[variant] = 0
 
 
 def read_launches():
     return {kid: wrapper.launches for kid, wrapper in launch_counters().items()}
 
 
+def k1_run(A, Y, X_ref, label, shift=0.0, variant=None):
+    """One K1 call on the card (the variant its dispatch picks, or `variant`
+    forced): fails unless it ran that variant and is within K1_REL_TOL of
+    the f64 reference X_ref (relative to max|X_ref|). Returns X, the
+    relative error and the variant."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import k1_variant, spd_solve
+
+    want = variant or k1_variant(*Y.shape[1:])
+    before = dict(spd_solve.launches_by_variant)
+    X = spd_solve(A, Y, shift, _variant=variant)
+    torch.cuda.synchronize()
+    ran = {v: cnt - before[v] for v, cnt in spd_solve.launches_by_variant.items()
+           if cnt != before[v]}
+    rel = (X.double() - X_ref).abs().max().item() / X_ref.abs().max().item()
+    if ran != {want: 1}:
+        raise RuntimeError(f"K1 {label}: launched {ran}, expected one {want}")
+    if not rel <= K1_REL_TOL:
+        raise RuntimeError(f"K1 {label} ({want}): relative error {rel:.3e} > {K1_REL_TOL}")
+    return X, rel, want
+
+
 def phase_kernels(dev):
-    """(a) hold K1 against its plain versions, time it."""
+    """(a) hold K1 against its plain versions, time its variants in turns."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_plain
@@ -181,26 +263,40 @@ def phase_kernels(dev):
         A = torch.tensor(A64, dtype=torch.float32, device=dev)
         Y = torch.tensor(Y64, dtype=torch.float32, device=dev)
         X_ref = spd_solve_plain(torch.tensor(A64, device=dev), torch.tensor(Y64, device=dev))
-        X_k = spd_solve(A, Y)
+        X_k, rel_k, variant = k1_run(A, Y, X_ref, label)
         X_p = spd_solve_plain(A, Y)
         torch.cuda.synchronize()
-        scale = X_ref.abs().max().item()
-        rel_k = (X_k.double() - X_ref).abs().max().item() / scale
-        rel_p = (X_p.double() - X_ref).abs().max().item() / scale
+        rel_p = (X_p.double() - X_ref).abs().max().item() / X_ref.abs().max().item()
         abs_kp = (X_k - X_p).abs().max().item()
-        if not (rel_k <= K1_REL_TOL and rel_p <= K1_REL_TOL and np.isfinite(abs_kp)):
-            raise RuntimeError(f"K1 {label} ({batch},{n},{m}): relative error kernel "
-                               f"{rel_k:.3e}, plain {rel_p:.3e} > {K1_REL_TOL}")
-        ms = cuda_ms(lambda: spd_solve(A, Y), reps=50)
+        if not (rel_p <= K1_REL_TOL and np.isfinite(abs_kp)):
+            raise RuntimeError(f"K1 {label} ({batch},{n},{m}): plain f32 relative error "
+                               f"{rel_p:.3e} > {K1_REL_TOL}")
+        row = dict(shape=label, batch=batch, n=n, m=m, calls_per_step=per_step,
+                   variant=variant, rel_err_kernel=rel_k, rel_err_plain=rel_p,
+                   max_abs_err=abs_kp)
+        # ms: 50 chained calls through the wrapper between two CUDA events, as
+        # every kernel is timed (the wrapper's host time bounds it when that
+        # exceeds the kernel's); ms_graph: the same 50 calls in a CUDA graph,
+        # the kernel with no host in the loop
+        turns = (variant,) if variant == "smem" else ("smem", variant, variant, "smem")
+        if variant != "smem":  # the smem kernel on the same inputs, in turns
+            _, row["rel_err_smem"], _ = k1_run(A, Y, X_ref, label, variant="smem")
+        events, graph = {}, {}
+        for i, v in enumerate(turns):
+            call = lambda v=v: spd_solve(A, Y, _variant=v)  # noqa: E731
+            events[f"{v}_{i}"], graph[f"{v}_{i}"] = cuda_ms(call, reps=50), graph_ms(call)
+        mean = lambda d, v: float(np.mean([t for k, t in d.items() if k.startswith(v)]))  # noqa: E731
+        ms = mean(events, variant)
+        row.update(ms_graph=mean(graph, variant), ms_turns=events, ms_graph_turns=graph)
+        if variant != "smem":
+            row.update(ms_smem=mean(events, "smem"), ms_smem_graph=mean(graph, "smem"))
         plain_ms = cuda_ms(lambda: spd_solve_plain(A, Y), reps=5, warmup=1)
         lib_ms = cuda_ms(lambda: torch.cholesky_solve(Y, torch.linalg.cholesky(A)), reps=20)
         # the kernel reads A's lower triangle and Y once, writes X once
         nbytes = 4 * batch * (n * (n + 1) // 2 + 2 * n * m)
         flops = batch * (n ** 3 / 3.0 + 2.0 * n * n * m)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-        row = dict(shape=label, batch=batch, n=n, m=m, calls_per_step=per_step,
-                   rel_err_kernel=rel_k, rel_err_plain=rel_p, max_abs_err=abs_kp,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+        row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
                    flops=flops, bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         log("[a] " + json.dumps(row))
@@ -209,25 +305,54 @@ def phase_kernels(dev):
     return rows
 
 
+K1_EDGES = (  # batch, n, m, shift
+    (1, 1, 1, 0.0), (7, 12, 5, 0.5), (1000, 12, 49, 1e-3), (1001, 30, 33, 0.0),
+    (33, 64, 1, 1e-5), (5, 17, 100, 0.0),
+    # the variants' boundaries: n = 16 | 17 and 32 | 33, m = 64 | 65
+    (1058, 16, 40, 0.0), (37, 17, 40, 1e-3), (1059, 32, 31, 0.0), (9, 33, 31, 0.0),
+    (11, 12, 64, 0.0), (11, 12, 65, 0.0), (6, 30, 64, 1e-3), (6, 30, 65, 0.0),
+    # large batches that leave the last 4-warp block half filled, and a
+    # grid stride with a ragged last round
+    (4 * 1000 + 2, 12, 49, 0.0), (40003, 12, 49, 0.0), (3 * 1031 + 1, 30, 31, 0.0),
+)
+
+
 def check_k1_edges(dev, rng):
-    """K1 off the main shapes: ragged batches (one and several systems a
-    block), n = 1 and n = 64, RHS widths around the 32-lane stride, a shift,
-    and the launches it must refuse."""
+    """K1 off the main shapes, each through the variant k1_variant names:
+    ragged batches (one and several systems a block, half-filled blocks, a
+    ragged grid stride), n = 1, 16, 17, 32, 33 and 64, m = 64 and 65, RHS
+    widths around the 32-lane stride, a shift; then each variant on a
+    misaligned base with NaN above the diagonal (never read); and the
+    launches it must refuse."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_plain
 
-    for batch, n, m, shift in ((1, 1, 1, 0.0), (7, 12, 5, 0.5), (1000, 12, 49, 1e-3),
-                               (1001, 30, 33, 0.0), (33, 64, 1, 1e-5), (5, 17, 100, 0.0)):
+    ran = {}
+    for batch, n, m, shift in K1_EDGES:
         A64, Y64 = spd_batch(rng, batch, n, m)
-        X_k = spd_solve(torch.tensor(A64, dtype=torch.float32, device=dev),
-                        torch.tensor(Y64, dtype=torch.float32, device=dev), shift)
         X_ref = spd_solve_plain(torch.tensor(A64, device=dev), torch.tensor(Y64, device=dev),
                                 shift)
-        torch.cuda.synchronize()
-        rel = (X_k.double() - X_ref).abs().max().item() / X_ref.abs().max().item()
-        if not rel <= K1_REL_TOL:
-            raise RuntimeError(f"K1 ({batch},{n},{m}) shift {shift}: relative error {rel:.3e}")
+        _, _, variant = k1_run(torch.tensor(A64, dtype=torch.float32, device=dev),
+                               torch.tensor(Y64, dtype=torch.float32, device=dev), X_ref,
+                               f"edge ({batch},{n},{m})", shift)
+        ran[f"{batch}x{n}x{m}"] = variant
+
+    def misaligned(t):  # contiguous, one float past an aligned base
+        flat = torch.empty(t.numel() + 1, dtype=torch.float32, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for batch, n, m in ((13, 12, 49), (13, 30, 31), (13, 40, 3)):
+        A64, Y64 = spd_batch(rng, batch, n, m)
+        X_ref = spd_solve_plain(torch.tensor(A64, device=dev), torch.tensor(Y64, device=dev))
+        A = torch.tensor(A64, dtype=torch.float32, device=dev)
+        A = torch.where(torch.ones(n, n, dtype=torch.bool, device=dev).triu(1), float("nan"), A)
+        _, _, variant = k1_run(misaligned(A), misaligned(torch.tensor(Y64, dtype=torch.float32,
+                                                                      device=dev)),
+                               X_ref, f"misaligned, NaN above the diagonal ({batch},{n},{m})")
+        ran[f"misaligned_nan_upper_{batch}x{n}x{m}"] = variant
     refusals = (
         (TypeError, torch.eye(4, device=dev, dtype=torch.float64)[None],
          torch.ones(1, 4, 1, device=dev, dtype=torch.float64)),
@@ -241,7 +366,7 @@ def check_k1_edges(dev, rng):
             continue
         raise RuntimeError(f"K1 took ({tuple(A.shape)}, {tuple(Y.shape)}, {A.dtype}), "
                            f"which it must refuse with {error.__name__}")
-    log("[a] K1 edge cases and refusals: ok")
+    log(f"[a] K1 edge cases (variant each ran) and refusals: ok {json.dumps(ran)}")
 
 
 def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1"):
@@ -280,9 +405,12 @@ def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1"):
     return BatchedMpc(solver, backend=backend), stage, x_batch
 
 
-# launches a step of each LQ backend; every other counter must stay at 0
+# launches a step of each LQ backend, and K1's by variant; every other
+# counter must stay at 0
 LAUNCHES_PER_STEP = {"bm_k1": {"K1": 68}, "bm_fused": {"K1": 1, "K2": 1},
                      "lq_fused": {"K3a": 1, "K3b": 1, "K3c": 1, "K3d": 1}}
+K1_VARIANTS_PER_STEP = {"bm_k1": {"reg32": 67, "reg16": 1}, "bm_fused": {"reg16": 1},
+                        "lq_fused": {}}
 
 
 def drive(dev, backend, tag):
@@ -292,6 +420,7 @@ def drive(dev, backend, tag):
     numbers and its final state."""
     import torch
 
+    from qm_door_torch.ops.spd_solve import spd_solve
     from qm_door_torch.solver import batched_sqp
 
     mpc, stage, x_batch = make_problem(dev, torch.float32, BATCH, "analytic_bf16", backend)
@@ -311,20 +440,24 @@ def drive(dev, backend, tag):
         torch.cuda.synchronize()
         elapsed = time.time() - t0
         launches = read_launches()
+        k1_variants = dict(spd_solve.launches_by_variant)
     finally:
         batched_sqp.evaluate_trajectory = evaluate
     steps = WARM_STEPS + 1
     want = {kid: LAUNCHES_PER_STEP[backend].get(kid, 0) * steps for kid in launches}
+    want_k1 = {v: K1_VARIANTS_PER_STEP[backend].get(v, 0) * steps for v in k1_variants}
     viol = stats[1].mean().item()
     finite = bool(torch.isfinite(X).all() and torch.isfinite(U).all())
-    if launches != want:
-        raise RuntimeError(f"{backend}: launches {launches} in {steps} steps, expected {want}")
+    if launches != want or k1_variants != want_k1:
+        raise RuntimeError(f"{backend}: launches {launches}, K1 by variant {k1_variants} in "
+                           f"{steps} steps, expected {want}, {want_k1}")
     if not (finite and np.isfinite(viol) and viol <= VIOLATION_MAX):
         raise RuntimeError(f"{backend}: finite={finite}, mean violation {viol:.3e}")
-    log(f"[{tag}] {backend}: launches in {steps} steps {launches}")
+    log(f"[{tag}] {backend}: launches in {steps} steps {launches}, K1 by variant "
+        f"{k1_variants}")
     return dict(mpc=mpc, stage=stage, x_batch=x_batch, X=X, U=U, cold_s=cold_s,
-                elapsed=elapsed, launches=launches, steps=steps, viol=viol,
-                linesearch_evals=len(evals))
+                elapsed=elapsed, launches=launches, k1_variants=k1_variants, steps=steps,
+                viol=viol, linesearch_evals=len(evals))
 
 
 def timer(stage_ms, device):
@@ -416,7 +549,8 @@ def phase_main_path(dev):
     result = run_result(run, "bm_k1", device["step"])
     result.update(stage_ms=stage_ms, device_profile=device,
                   k1_launches=run["launches"]["K1"],
-                  k1_launches_per_step=run["launches"]["K1"] / run["steps"])
+                  k1_launches_per_step=run["launches"]["K1"] / run["steps"],
+                  k1_launches_by_variant=run["k1_variants"])
     log("[b] " + json.dumps(result))
     return dict(run=run, lq=lq, plq=plq, flags=flags, dX=dX, dU=dU, shift=s.hessian_shift)
 
@@ -507,7 +641,7 @@ def phase_new_kernels(dev, main):
     from qm_door_torch.ocp import constraints as cons
     from qm_door_torch.ops import lq as tl
     from qm_door_torch.ops import riccati_fused as rf
-    from qm_door_torch.ops.spd_solve import spd_solve_ll, spd_solve_plain
+    from qm_door_torch.ops.spd_solve import k1_variant, spd_solve_ll, spd_solve_plain
 
     c = lambda t: t.contiguous()  # noqa: E731
     f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
@@ -556,9 +690,12 @@ def phase_new_kernels(dev, main):
         fwd_args, tl.riccati_forward_ll_plain(*f64(fwd_args)), SWEEP_REL_TOL,
         4 * (B * N * floats + 2 * B * 30), B * N * fl)
 
-    # K1-ll: lanes-last SPD solves at the gain shape, then ragged batches
+    # K1-ll: lanes-last SPD solves at the gain shape, then ragged batches;
+    # each through the variant K1's dispatch names (reg32, reg16, smem)
     rng = np.random.default_rng(1)
+    ll_variants = {}
     for batch, n, m, s_ll in ((BATCH, 30, 31, 0.0), (1001, 12, 49, 1e-3), (7, 64, 3, 0.0)):
+        before = dict(spd_solve_ll.launches_by_variant)
         A64, Y64 = spd_batch(rng, batch, n, m)
         At = torch.tensor(A64, dtype=torch.float32, device=dev).permute(1, 2, 0).contiguous()
         Yt = torch.tensor(Y64, dtype=torch.float32, device=dev).permute(1, 2, 0).contiguous()
@@ -571,11 +708,17 @@ def phase_new_kernels(dev, main):
                                 .permute(1, 2, 0),),
                 [At, Yt], [ref], K1_REL_TOL, 4 * batch * (n * (n + 1) // 2 + 2 * n * m),
                 batch * (n ** 3 / 3.0 + 2.0 * n * n * m), reps=50)
-            continue
-        rel, _ = rel_err([spd_solve_ll(At, Yt, s_ll)], [ref])
-        if not rel <= K1_REL_TOL:
-            raise RuntimeError(f"K1-ll ({n},{m},{batch}) shift {s_ll}: relative error {rel:.3e}")
-    log("[d] K1-ll ragged batches (1001 x 12 x 49 with a shift, 7 x 64 x 3): ok")
+        else:
+            rel, _ = rel_err([spd_solve_ll(At, Yt, s_ll)], [ref])
+            if not rel <= K1_REL_TOL:
+                raise RuntimeError(f"K1-ll ({n},{m},{batch}) shift {s_ll}: relative error "
+                                   f"{rel:.3e}")
+        ran = {v for v, cnt in spd_solve_ll.launches_by_variant.items() if cnt != before[v]}
+        if ran != {k1_variant(n, m)}:
+            raise RuntimeError(f"K1-ll ({n},{m},{batch}) ran {ran}, not {k1_variant(n, m)}")
+        ll_variants[f"{n}x{m}x{batch}"] = k1_variant(n, m)
+    log(f"[d] K1-ll ragged batches (1001 x 12 x 49 with a shift, 7 x 64 x 3): ok; variants "
+        f"{json.dumps(ll_variants)}")
 
     # every new wrapper refuses float64 and a non-contiguous input on the card
     # (the same shape with its last two axes' strides swapped)
@@ -638,6 +781,7 @@ def phase_backends(dev, main):
         device["step"] = device_busy(lambda: mpc.step(stage, x_batch, X, U))
         result = run_result(run, backend, device["step"])
         result.update(stage_ms=stage_ms, device_profile=device,
+                      k1_launches_by_variant=run["k1_variants"],
                       dX_vs_bm_k1=(dX - main["dX"]).abs().max().item(),
                       dU_vs_bm_k1=(dU - main["dU"]).abs().max().item())
         log("[e] " + json.dumps(result))
@@ -721,9 +865,15 @@ def main():
         "source": "qm_door_torch/csrc/spd_solve.cu",
         "replaces": "qm_door_tpu/ops/pallas_chol.py:103",
         "launches": main_path["run"]["launches"]["K1"],
+        "launches_by_variant": main_path["run"]["k1_variants"],
         "max_abs_err": max(r["max_abs_err"] for r in on_path),
-        # one SQP step's K1 work: 1 projection solve + 67 gain solves
+        # one SQP step's K1 work: 1 projection solve + 67 gain solves, in
+        # chained-call events (ms) and in a CUDA graph (ms_graph); the smem
+        # kernel's time for the same work, timed in turns in (a)
         "ms": per_step("ms"),
+        "ms_graph": per_step("ms_graph"),
+        "ms_smem": per_step("ms_smem"),
+        "ms_smem_graph": per_step("ms_smem_graph"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": "bytes" if per_step("bytes_ms") >= per_step("ops_ms") else "operations",

@@ -3,9 +3,11 @@ make around a launch.
 
 Each ``qm_door_torch/csrc/<name>.cu`` exposes a plain C interface. At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into
-``build/qm_door_torch/lib<name>-<source hash>.so`` at the repository root
-(listed in .gitignore) and loaded with ctypes; a library whose source has
-not changed is reused.
+``build/qm_door_torch/lib<name>-<hash>.so`` at the repository root
+(listed in .gitignore) and loaded with ctypes; nvcc's ptxas report is kept
+beside it (``.ptxas.txt``). The hash covers the source, every header of
+``csrc/`` (``*.cuh``, which a source may include) and the flags, so a
+library is reused only while none of them has changed.
 
 A wrapper asks :func:`on_cuda` whether to launch (CUDA tensors) or to run
 its plain version (CPU tensors), and hands the C function's return code to
@@ -53,23 +55,35 @@ def _flags(defines) -> tuple:
 
 
 def _library_path(name: str, defines=()) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def report_path(library: str) -> str:
+    """Where the ptxas report of ``library`` is kept, beside it."""
+    return library[:-len(".so")] + ".ptxas.txt"
 
 
 def build(name: str, defines=()) -> str:
     """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``, a
-    diagnostic variant) if its library is missing. Returns nvcc's output
-    (the ptxas register/shared-memory report), empty when reused. Calls for
-    different sources may run in parallel threads."""
+    diagnostic variant) unless its library and the library's ptxas report
+    are both there. Returns nvcc's output (the ptxas register, spill and
+    shared-memory report), kept beside the library and read back when the
+    library is reused. Calls for different sources may run in parallel
+    threads."""
     key = (name, tuple(defines))
     with _lock:
         lock = _build_locks.setdefault(key, threading.Lock())
     with lock:
         path = _library_path(name, defines)
-        if os.path.exists(path):
-            return ""
+        report = report_path(path)
+        if os.path.exists(path) and os.path.exists(report):
+            with open(report) as f:
+                return f.read()
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -79,6 +93,9 @@ def build(name: str, defines=()) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
                                f"{proc.returncode}\n{proc.stdout}")
+        with open(f"{report}.{os.getpid()}.tmp", "w") as f:
+            f.write(proc.stdout)
+        os.replace(f"{report}.{os.getpid()}.tmp", report)
         os.replace(tmp, path)
         return proc.stdout
 

@@ -1,20 +1,33 @@
 """K1: batched small SPD solve, X = (A + shift*I)^-1 Y.
 
 Replaces the Pallas TPU kernel ``qm_door_tpu/ops/pallas_chol.py:spd_solve``
-(``_spd_kernel``). The CUDA kernel is ``qm_door_torch/csrc/spd_solve.cu``:
-one warp per system, the system staged in shared memory, a right-looking
-Cholesky with the same guarded rsqrt pivots, then forward and back
-substitution with one lane per right-hand-side column. It is bound by
-memory on an H100 (each input byte read once, each output byte written
-once, ~3 flops a byte); the source note has the arithmetic and the design.
-It reads only the lower triangle of A: both solver call sites pass exactly
-symmetric matrices.
+(``_spd_kernel``). The CUDA source is ``qm_door_torch/csrc/spd_solve.cu``
+with the warp routines of ``csrc/chol_warp.cuh``; it holds three variants,
+and :func:`k1_variant` picks one from the shape alone:
 
-:func:`spd_solve` launches the kernel for CUDA tensors (f32, n <= 64) and
-raises for anything it cannot take; for CPU tensors it runs
-:func:`spd_solve_plain`, the same algorithm as batched torch ops.
-:func:`spd_solve_ll` (K1-ll) is the same kernel on lanes-last arrays,
-entered with other strides.
+- ``reg16`` (n <= 16) and ``reg32`` (n <= 32), both for m <= 64
+  (:data:`REG_MAX_M`, two right-hand-side columns a lane): one warp a
+  system, held in registers. Lane i factors row i with shuffles, lane c
+  solves column c. The main path's two shapes take them: the projection
+  (25728 x 12 x 49, bytes-bound; reg16 walks the batch and stages the
+  next system while it solves this one) and the Riccati gain (384 x 30 x
+  31, latency-bound; reg32 gives each system its own warp).
+- ``smem`` (any other n <= 64, as long as one system fits a block's shared
+  memory): the system staged in shared memory, a right-looking Cholesky,
+  one lane per right-hand-side column. The WBC shapes (n = 36/42 with m = 1,
+  the 58 x 58 Gram solve) take it.
+
+All read only the lower triangle of A (both solver call sites pass exactly
+symmetric matrices) and use the pivots rsqrt(max(a_kk, 1e-30)); the source
+note has the design and what bounds each shape.
+
+:func:`spd_solve` launches the chosen variant for CUDA tensors (f32,
+n <= 64) and raises for anything it cannot take; nothing is chosen because
+a build or a launch failed. CPU tensors run :func:`spd_solve_plain`, the
+same algorithm as batched torch ops. :func:`spd_solve_ll` (K1-ll) is the
+same solve on lanes-last arrays, through the same dispatch with other
+strides. Each wrapper counts its launches in ``.launches`` and, by variant,
+in ``.launches_by_variant``.
 """
 from __future__ import annotations
 
@@ -62,42 +75,84 @@ def spd_solve_plain(A, Y, shift: float = 0.0):
 
 
 def shared_bytes_per_system(n: int, m: int) -> int:
-    """Shared memory one system takes in the kernel (odd row stride for A)."""
+    """Shared memory one system takes in the smem variant (odd row stride for A)."""
     return (n * (n | 1) + n * m) * 4
 
 
-_lib = None
+REG_MAX_M = 64  # the register variants keep at most two columns a lane
+VARIANTS = ("reg16", "reg32", "smem")
 
 
-def _lib_fn(name):
-    global _lib
-    if _lib is None:
-        lib = load("spd_solve")
-        for fn in (lib.qm_spd_solve_f32, lib.qm_spd_solve_ll_f32):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return getattr(_lib, name)
+def k1_variant(n: int, m: int) -> str:
+    """The K1 variant for systems of n x n with m right-hand sides: "reg16"
+    for n <= 16, "reg32" for 16 < n <= 32, both only for m <= 64; "smem"
+    for everything else (n <= 64)."""
+    if m <= REG_MAX_M:
+        if n <= 16:
+            return "reg16"
+        if n <= 32:
+            return "reg32"
+    return "smem"
 
 
-def _launch(name, fn, A, Y, X, batch, n, m, shift):
+_fns: dict = {}
+
+
+def kernel_fn(variant: str, defines=()):
+    """The C entry point of a K1 variant, from the library built with
+    ``defines`` (another launch shape of the reg variants, to measure it:
+    ``k1_launch_shapes.py`` at the repository root)."""
+    key = (variant, tuple(defines))
+    if key not in _fns:
+        fn = getattr(load("spd_solve", tuple(defines)), f"qm_spd_solve_{variant}_f32")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]
+
+
+def _launch(wrapper, variant, A, Y, X, batch, n, m, shift, strides):
+    """Launch ``variant`` on CUDA tensors (checked by the caller) and count
+    it on ``wrapper``."""
+    name = wrapper.__name__
     with torch.cuda.device(A.device):
-        err = _lib_fn(fn)(A.data_ptr(), Y.data_ptr(), X.data_ptr(), batch, n, m, float(shift),
-                          torch.cuda.current_stream(A.device).cuda_stream)
-    check_launch(name, err, f" of n = {n}, m = {m}: one system needs "
-                 f"{shared_bytes_per_system(n, m)} B of shared memory, more than a "
-                 "block may hold on this card")
+        err = kernel_fn(variant)(A.data_ptr(), Y.data_ptr(), X.data_ptr(), batch, n, m,
+                                 float(shift), *strides,
+                                 torch.cuda.current_stream(A.device).cuda_stream)
+    if err:
+        what = f" of n = {n}, m = {m} ({variant})"
+        if variant == "smem":
+            what += (f": one system needs {shared_bytes_per_system(n, m)} B of shared "
+                     "memory, more than a block may hold on this card")
+        check_launch(name, err, what)
+    wrapper.launches += 1
+    wrapper.launches_by_variant[variant] += 1
 
 
-def spd_solve(A, Y, shift: float = 0.0):
+def _variant_for(name, n, m, forced):
+    if n > MAX_N:
+        raise ValueError(f"{name}: n = {n} > {MAX_N}")
+    if m < 1:
+        raise ValueError(f"{name}: no right-hand-side columns")
+    if forced is None:
+        return k1_variant(n, m)
+    if forced not in VARIANTS:
+        raise ValueError(f"{name}: no K1 variant {forced!r}")
+    return forced  # the C entry point refuses a shape the variant does not take
+
+
+def spd_solve(A, Y, shift: float = 0.0, _variant=None):
     """Solve (A + shift*I) X = Y for a batch of SPD matrices.
 
     A: (B, n, n); Y: (B, n, m), both contiguous, same device and dtype.
-    CUDA tensors go to the K1 kernel (float32, n <= 64) and
-    ``spd_solve.launches`` counts each launch; CPU tensors go to
-    :func:`spd_solve_plain`.
+    CUDA tensors go to the K1 variant :func:`k1_variant` picks (float32,
+    n <= 64), counted in ``spd_solve.launches`` and
+    ``spd_solve.launches_by_variant``; CPU tensors go to
+    :func:`spd_solve_plain`. ``_variant`` forces a variant (to time one
+    beside another on the card); the solver never passes it.
     """
     if A.dim() != 3 or Y.dim() != 3 or A.shape[1] != A.shape[2] \
             or Y.shape[:2] != A.shape[:2]:
@@ -108,29 +163,26 @@ def spd_solve(A, Y, shift: float = 0.0):
     if not on_cuda("spd_solve", A, Y):
         return spd_solve_plain(A, Y, shift)
     batch, n, m = Y.shape
-    if n > MAX_N:
-        raise ValueError(f"spd_solve: n = {n} > {MAX_N}")
-    if m < 1:
-        raise ValueError("spd_solve: Y has no columns")
+    variant = _variant_for("spd_solve", n, m, _variant)
     X = torch.empty_like(Y)
     if batch == 0:
         return X
-    _launch("spd_solve", "qm_spd_solve_f32", A, Y, X, batch, n, m, shift)
-    spd_solve.launches += 1
+    _launch(spd_solve, variant, A, Y, X, batch, n, m, shift, (n * n, n * m, 1))
     return X
 
 
 spd_solve.launches = 0
+spd_solve.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def spd_solve_ll(At, Yt, shift: float = 0.0):
     """K1-ll: the same solve on lanes-last arrays (port of
     ``pallas_chol.py:spd_solve_ll``): At (n, n, B), Yt (n, m, B) -> (n, m, B).
 
-    CUDA tensors (contiguous float32, n <= 64, any B) enter the K1 kernel
-    with batch stride 1 and element stride B, counted by
-    ``spd_solve_ll.launches``; CPU tensors take :func:`spd_solve_plain` on
-    the batch-major views.
+    CUDA tensors (contiguous float32, n <= 64, any B) enter the variant
+    :func:`k1_variant` picks with batch stride 1 and element stride B,
+    counted in ``spd_solve_ll.launches`` and ``.launches_by_variant``; CPU
+    tensors take :func:`spd_solve_plain` on the batch-major views.
     """
     if At.dim() != 3 or Yt.dim() != 3 or At.shape[0] != At.shape[1] \
             or Yt.shape[0] != At.shape[0] or Yt.shape[2] != At.shape[2]:
@@ -140,16 +192,13 @@ def spd_solve_ll(At, Yt, shift: float = 0.0):
         X = spd_solve_plain(At.permute(2, 0, 1), Yt.permute(2, 0, 1), shift)
         return X.permute(1, 2, 0).contiguous()
     n, m, batch = Yt.shape
-    if n > MAX_N:
-        raise ValueError(f"spd_solve_ll: n = {n} > {MAX_N}")
-    if m < 1:
-        raise ValueError("spd_solve_ll: Yt has no columns")
+    variant = _variant_for("spd_solve_ll", n, m, None)
     Xt = torch.empty_like(Yt)
     if batch == 0:
         return Xt
-    _launch("spd_solve_ll", "qm_spd_solve_ll_f32", At, Yt, Xt, batch, n, m, shift)
-    spd_solve_ll.launches += 1
+    _launch(spd_solve_ll, variant, At, Yt, Xt, batch, n, m, shift, (1, 1, batch))
     return Xt
 
 
 spd_solve_ll.launches = 0
+spd_solve_ll.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -1,8 +1,11 @@
 """K1 (qm_door_torch/ops/spd_solve.py): the plain version against the JAX
 kernel in interpret mode and its XLA reference, in float64 at 1e-10; K1-ll
 (``spd_solve_ll``, lanes-last) against JAX's ``spd_solve_ll``; the
-wrappers' dispatch and input checks on the CPU. The CUDA kernel itself is
-held against the plain version on the card by chip_smoke.py."""
+wrappers' dispatch and input checks on the CPU; the build's library names
+and the ptxas report it keeps. The CUDA kernel itself is held against the
+plain version on the card by chip_smoke.py."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,3 +121,59 @@ def test_a_diagnostic_build_gets_its_own_library():
     diag = cuda_build._library_path("riccati_bwd", ("QM_SWEEP_PHASE_CLOCKS",))
     assert plain != diag and diag.startswith(cuda_build.BUILD_DIR)
     assert "-DQM_SWEEP_PHASE_CLOCKS" in cuda_build._flags(("QM_SWEEP_PHASE_CLOCKS",))
+
+
+def test_editing_a_header_changes_the_library_path(monkeypatch, tmp_path):
+    (tmp_path / "kern.cu").write_text('#include "warp.cuh"\n')
+    (tmp_path / "warp.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    before = cuda_build._library_path("kern")
+    assert before == cuda_build._library_path("kern")
+    (tmp_path / "warp.cuh").write_text("// v2\n")
+    after = cuda_build._library_path("kern")
+    assert after != before and after.startswith(cuda_build.BUILD_DIR)
+    (tmp_path / "kern.cu").write_text('#include "warp.cuh"\n// edited\n')
+    assert cuda_build._library_path("kern") not in (before, after)
+
+
+def _fake_csrc(monkeypatch, tmp_path):
+    """A csrc/ with one source and a build directory, both under tmp_path."""
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "kern.cu").write_text("// kernel\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path / "csrc"))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    return cuda_build._library_path("kern")
+
+
+def test_a_reused_library_returns_its_kept_ptxas_report(monkeypatch, tmp_path):
+    lib = _fake_csrc(monkeypatch, tmp_path)
+    (tmp_path / "build").mkdir()
+    open(lib, "w").close()
+    with open(cuda_build.report_path(lib), "w") as f:
+        f.write("ptxas info    : Used 128 registers\n")
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: pytest.fail("rebuilt a complete library"))
+    assert cuda_build.build("kern") == "ptxas info    : Used 128 registers\n"
+
+
+def test_a_library_without_its_report_is_rebuilt_and_keeps_the_report(monkeypatch, tmp_path):
+    import subprocess
+
+    lib = _fake_csrc(monkeypatch, tmp_path)
+    (tmp_path / "build").mkdir()
+    open(lib, "w").close()  # built before reports were kept
+    calls = []
+
+    def fake_nvcc(cmd, **kwargs):
+        calls.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "w").close()
+        return subprocess.CompletedProcess(cmd, 0, stdout="0 bytes spill stores\n")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_nvcc)
+    assert cuda_build.build("kern") == "0 bytes spill stores\n"
+    assert len(calls) == 1 and cuda_build.report_path(lib).endswith(".ptxas.txt")
+    with open(cuda_build.report_path(lib)) as f:
+        assert f.read() == "0 bytes spill stores\n"
+    assert cuda_build.build("kern") == "0 bytes spill stores\n" and len(calls) == 1
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [os.path.basename(lib), os.path.basename(cuda_build.report_path(lib))])

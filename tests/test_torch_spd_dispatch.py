@@ -1,0 +1,53 @@
+"""K1's variant dispatch (qm_door_torch/ops/spd_solve.py:k1_variant): the
+register variants take the main path's shapes, the shared-memory kernel the
+WBC shapes, and the boundaries fall where the kernel source's note puts
+them (reg16 for n <= 16, reg32 for n <= 32, both for m <= REG_MAX_M = 64).
+On the CPU nothing launches: no variant is counted. The variants
+themselves run only on the card, where chip_smoke.py holds each against
+the f64 plain solve."""
+import numpy as np
+import pytest
+import torch
+
+from qm_door_torch.ops import spd_solve as k1
+
+
+@pytest.mark.parametrize("n, m, variant", [(30, 31, "reg32"), (12, 49, "reg16")])
+def test_main_path_shapes_take_the_register_variants(n, m, variant):
+    assert k1.k1_variant(n, m) == variant
+
+
+@pytest.mark.parametrize("n, m", [(36, 1), (42, 1), (58, 58)])
+def test_wbc_shapes_take_the_shared_memory_kernel(n, m):
+    assert k1.k1_variant(n, m) == "smem"
+
+
+@pytest.mark.parametrize("n, m, variant", [
+    (1, 1, "reg16"), (16, 1, "reg16"), (17, 1, "reg32"), (32, 1, "reg32"), (33, 1, "smem"),
+    (64, 1, "smem"), (12, 64, "reg16"), (12, 65, "smem"), (30, 64, "reg32"),
+    (30, 65, "smem"), (17, 33, "reg32"), (16, 64, "reg16"), (32, 64, "reg32")])
+def test_boundaries(n, m, variant):
+    assert k1.REG_MAX_M == 64
+    assert k1.k1_variant(n, m) == variant
+
+
+def _spd(rng, B, n, m):
+    A = rng.normal(size=(B, n, n))
+    return A @ np.swapaxes(A, -1, -2) + n * np.eye(n), rng.normal(size=(B, n, m))
+
+
+def test_cpu_tensors_count_no_variant():
+    rng = np.random.default_rng(5)
+    total = (k1.spd_solve.launches, k1.spd_solve_ll.launches)
+    by_variant = (dict(k1.spd_solve.launches_by_variant),
+                  dict(k1.spd_solve_ll.launches_by_variant))
+    for B, n, m in ((7, 12, 49), (3, 30, 31), (2, 58, 58)):
+        A, Y = (torch.as_tensor(t) for t in _spd(rng, B, n, m))
+        k1.spd_solve(A, Y)
+        k1.spd_solve(A, Y, _variant="smem")
+        k1.spd_solve_ll(A.permute(1, 2, 0).contiguous(), Y.permute(1, 2, 0).contiguous())
+    assert (k1.spd_solve.launches, k1.spd_solve_ll.launches) == total
+    assert (k1.spd_solve.launches_by_variant, k1.spd_solve_ll.launches_by_variant) == by_variant
+    for counts in by_variant:
+        assert set(counts) == set(k1.VARIANTS)
+        assert all(type(v) is int and v == 0 for v in counts.values())
