@@ -40,12 +40,20 @@ Phases:
       version in f64 on the same inputs (pass: relative max error <= 1e-4
       for K3a/K3b, <= 1e-3 for the sweeps; the plain f32 error printed
       beside), timed with CUDA events next to its bound and its plain time;
-      K1-ll (lanes-last K1, through K1's dispatch: reg32 at 384 x 30 x 31)
-      against spd_solve_plain with ragged batches;
+      K2 and K3c run the reg variant there, and the smem variant on the same
+      data is checked too and timed in turns (smem, reg, reg, smem), with
+      each variant's per-phase clock64() cycles a node; then K2 and K3c at
+      (Bb, N, nx, nu) = (5, 9, 7, 4), (3, 1, 30, 30), (7, 11, 36, 32) and
+      (2, 5, 30, 36), with and without a shift, on the JAX tests' random
+      recipe, each through the variant sweep_variant names (reg, reg,
+      reg with two solving warps, smem) and within 1e-3 of the f64 plain
+      sweep; K1-ll (lanes-last K1, through K1's dispatch: reg32 at
+      384 x 30 x 31) against spd_solve_plain with ragged batches;
       each new wrapper refuses float64 and a non-contiguous input.
   (e) backends: BatchedMpc(backend="bm_fused") and ("lq_fused") driven as
       (b) drives bm_k1 (one cold and 20 warm steps, exact launches a step:
-      bm_fused K1 1 (reg16) + K2 1; lq_fused K3a, K3b, K3c, K3d 1 each, no K1;
+      bm_fused K1 1 (reg16) + K2 1 (reg); lq_fused K3a, K3b, K3c (reg), K3d
+      1 each, no K1;
       mean violation <= 1e-5), their LQ stage's host ms and device busy
       ms at (b)'s iterate and its max|dX|, |dU| difference from bm_k1 there,
       and (c)'s cross-precision check for each.
@@ -169,7 +177,9 @@ def build_all():
     """Build every kernel source of qm_door_torch/csrc and the diagnostic
     build of the sweep kernel, one nvcc each, all started together; log each
     one's ptxas report (kept from the build when a library is reused) and
-    fail unless it shows the four K1 register kernels without spills."""
+    fail unless it shows the four K1 register kernels and the four sweep
+    kernels (K2/K3c x reg/smem) of the normal build without spills. The
+    phase-clock build's spills are logged: its cycle counts carry them."""
     from qm_door_torch.ops import cuda_build
     from qm_door_torch.ops import riccati_fused
 
@@ -182,23 +192,39 @@ def build_all():
     for (name, defines), out in zip(libs, outs):
         for line in out.splitlines():
             log(f"nvcc {' -D'.join((name,) + defines)}: {line}")
-    spills = reg_variant_spills(outs[libs.index(("spd_solve", ()))])
-    log(f"K1 register variants, bytes of spill stores: {json.dumps(spills)}")
-    if len(spills) != 4 or any(spills.values()):
-        raise RuntimeError(f"K1 register variants: expected 4 kernels without spills, "
-                           f"ptxas reports {spills}")
+    for label, lib, kernel in (("K1 register variants", ("spd_solve", ()), "spd_reg_kernel"),
+                               ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel")):
+        spills = kernel_spills(outs[libs.index(lib)], kernel)
+        log(f"{label}, bytes of spill stores: {json.dumps(spills)}")
+        if len(spills) != 4 or any(spills.values()):
+            raise RuntimeError(f"{label}: expected 4 kernels without spills, "
+                               f"ptxas reports {spills}")
+    clock_spills = kernel_spills(
+        outs[libs.index(("riccati_bwd", (riccati_fused.PHASE_CLOCKS,)))], "riccati_bwd_kernel")
+    SWEEP_CLOCK_SPILLS.update({sweep_instance(k): v for k, v in clock_spills.items()})
+    log(f"sweep phase-clock build, bytes of spill stores: {json.dumps(SWEEP_CLOCK_SPILLS)}")
 
 
-def reg_variant_spills(ptxas_out):
-    """Bytes of spill stores of each spd_reg_kernel instantiation in a ptxas
-    -v report ("Function properties for <name>" then "... N bytes spill
-    stores ...")."""
+SWEEP_CLOCK_SPILLS = {}  # the phase-clock build's spills, noted beside its readings
+
+
+def sweep_instance(name):
+    """"K2_reg", "K3c_smem", ... for a mangled riccati_bwd_kernel<kSym, kReg>
+    name."""
+    tail = name.split("riccati_bwd_kernelILb")[1]  # "<kSym>ELb<kReg>E..."
+    return f"{'K2' if tail[0] == '1' else 'K3c'}_{'reg' if tail[4] == '1' else 'smem'}"
+
+
+def kernel_spills(ptxas_out, kernel):
+    """Bytes of spill stores of each instantiation of `kernel` in a ptxas -v
+    report ("Function properties for <name>" then "... N bytes spill stores
+    ...")."""
     spills, current = {}, None
     for line in ptxas_out.splitlines():
         if "Function properties for" in line:
             current = line.split("Function properties for")[-1].strip()
         elif current and "spill stores" in line:
-            if "spd_reg_kernel" in current:
+            if kernel in current:
                 spills[current] = int(line.split("bytes spill stores")[0].split(",")[-1])
             current = None
     return spills
@@ -411,6 +437,8 @@ LAUNCHES_PER_STEP = {"bm_k1": {"K1": 68}, "bm_fused": {"K1": 1, "K2": 1},
                      "lq_fused": {"K3a": 1, "K3b": 1, "K3c": 1, "K3d": 1}}
 K1_VARIANTS_PER_STEP = {"bm_k1": {"reg32": 67, "reg16": 1}, "bm_fused": {"reg16": 1},
                         "lq_fused": {}}
+SWEEP_VARIANTS_PER_STEP = {"bm_k1": {}, "bm_fused": {"K2": {"reg": 1}},
+                           "lq_fused": {"K3c": {"reg": 1}}}
 
 
 def drive(dev, backend, tag):
@@ -441,23 +469,28 @@ def drive(dev, backend, tag):
         elapsed = time.time() - t0
         launches = read_launches()
         k1_variants = dict(spd_solve.launches_by_variant)
+        sweep_variants = {kid: dict(w.launches_by_variant) for kid, w in sweep_wrappers().items()}
     finally:
         batched_sqp.evaluate_trajectory = evaluate
     steps = WARM_STEPS + 1
     want = {kid: LAUNCHES_PER_STEP[backend].get(kid, 0) * steps for kid in launches}
     want_k1 = {v: K1_VARIANTS_PER_STEP[backend].get(v, 0) * steps for v in k1_variants}
+    want_sweep = {kid: {v: SWEEP_VARIANTS_PER_STEP[backend].get(kid, {}).get(v, 0) * steps
+                        for v in counts} for kid, counts in sweep_variants.items()}
     viol = stats[1].mean().item()
     finite = bool(torch.isfinite(X).all() and torch.isfinite(U).all())
-    if launches != want or k1_variants != want_k1:
-        raise RuntimeError(f"{backend}: launches {launches}, K1 by variant {k1_variants} in "
-                           f"{steps} steps, expected {want}, {want_k1}")
+    if launches != want or k1_variants != want_k1 or sweep_variants != want_sweep:
+        raise RuntimeError(f"{backend}: launches {launches}, K1 by variant {k1_variants}, "
+                           f"sweeps by variant {sweep_variants} in {steps} steps, expected "
+                           f"{want}, {want_k1}, {want_sweep}")
     if not (finite and np.isfinite(viol) and viol <= VIOLATION_MAX):
         raise RuntimeError(f"{backend}: finite={finite}, mean violation {viol:.3e}")
     log(f"[{tag}] {backend}: launches in {steps} steps {launches}, K1 by variant "
-        f"{k1_variants}")
+        f"{k1_variants}, sweeps by variant {sweep_variants}")
     return dict(mpc=mpc, stage=stage, x_batch=x_batch, X=X, U=U, cold_s=cold_s,
-                elapsed=elapsed, launches=launches, k1_variants=k1_variants, steps=steps,
-                viol=viol, linesearch_evals=len(evals))
+                elapsed=elapsed, launches=launches, k1_variants=k1_variants,
+                sweep_variants=sweep_variants, steps=steps, viol=viol,
+                linesearch_evals=len(evals))
 
 
 def timer(stage_ms, device):
@@ -588,9 +621,10 @@ NODE_COST = {  # (floats moved, flops) per node, nx = nu = 30, 18 joint and 12 f
 SWEEP_PHASES = ("load", "SA_SB_Sd", "Q_terms", "cholesky", "substitutions", "S_update")
 
 
-def sweep_phases(args, symmetrize):
-    """clock64() cycles a node of each phase of the sweep kernel (K2 or K3c)
-    in block 0, from its diagnostic build, on the sweep's inputs ``args``."""
+def sweep_phases(args, symmetrize, variant):
+    """clock64() cycles a node of each phase of a sweep variant (K2 or K3c)
+    in block 0's thread 0 (on the reg variant, the factoring warp), from its
+    diagnostic build, on the sweep's inputs ``args``."""
     import torch
 
     from qm_door_torch.ops import riccati_fused as rf
@@ -601,12 +635,113 @@ def sweep_phases(args, symmetrize):
     K = torch.empty(Bb, N, nu, nx, device=A.device)
     kff = torch.empty(Bb, N, nu, device=A.device)
     clocks = torch.zeros(len(SWEEP_PHASES), dtype=torch.int64, device=A.device)
-    err = rf.kernel_fn((rf.PHASE_CLOCKS,))(
+    err = rf.kernel_fn(variant, (rf.PHASE_CLOCKS,))(
         *(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(), Bb, N, nx, nu, 0.0,
         int(symmetrize), torch.cuda.current_stream(A.device).cuda_stream, clocks.data_ptr())
     check_launch("sweep phase clocks", err)
     torch.cuda.synchronize()
-    return {name: c / N for name, c in zip(SWEEP_PHASES, clocks.tolist())}
+    cycles = {name: c / N for name, c in zip(SWEEP_PHASES, clocks.tolist())}
+    total = sum(cycles.values())
+    return {"cycles": cycles, "total": total,
+            "share": {name: c / total for name, c in cycles.items()}}
+
+
+# (Bb, N, nx, nu) off the path, each with and without a shift: the small
+# parity shape, one node, the reg variant with a second solving warp
+# (nx + 1 = 37 columns), and the smem variant (nu = 36)
+SWEEP_SHAPES = ((5, 9, 7, 4), (3, 1, 30, 30), (7, 11, 36, 32), (2, 5, 30, 36))
+SWEEP_SHIFT = 1e-3
+
+
+def sweep_data(shape):
+    """float64 sweep inputs on the recipe of
+    tests/test_torch_riccati_fused.py:_random_plq (the JAX tests' own):
+    A near I, SPD lxx, luu, lxx_f, seeded by the shape."""
+    Bb, N, nx, nu = shape
+    rng = np.random.default_rng(sum(shape))
+
+    def spd(*s):
+        M = rng.normal(size=s + (s[-1],)) * 0.3
+        return M @ np.swapaxes(M, -1, -2) + 2.0 * np.eye(s[-1])
+
+    A = rng.normal(size=(Bb, N, nx, nx)) * 0.2 + np.eye(nx)
+    B = rng.normal(size=(Bb, N, nx, nu)) * 0.3
+    d = rng.normal(size=(Bb, N, nx)) * 0.1
+    lx = rng.normal(size=(Bb, N, nx))
+    lu = rng.normal(size=(Bb, N, nu))
+    lxx, luu = spd(Bb, N, nx), spd(Bb, N, nu)
+    lux = rng.normal(size=(Bb, N, nu, nx)) * 0.2
+    lxx_f, lx_f = spd(Bb, nx), rng.normal(size=(Bb, nx))
+    return [A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f]
+
+
+def sweep_call(kid, args, shift=0.0, variant=None):
+    """One launch of K2 or K3c on CUDA tensors ``args``: the variant
+    sweep_variant names, or ``variant`` forced. K3c's wrapper takes no shift
+    (the TPU kernel has none), so a shift, or a forced variant, enters the
+    kernel through the launch both wrappers share, counted on K3c's."""
+    from qm_door_torch.ops import lq as tl
+    from qm_door_torch.ops import riccati_fused as rf
+
+    if kid == "K2":
+        return rf.riccati_backward_fused(*args, shift=shift, _variant=variant)
+    if shift == 0.0 and variant is None:
+        return tl.riccati_backward_ll(*args)
+    return rf.launch_sweep(tl.riccati_backward_ll, args, shift, symmetrize=False,
+                           variant=variant)
+
+
+def sweep_wrappers():
+    from qm_door_torch.ops import lq as tl
+    from qm_door_torch.ops import riccati_fused as rf
+
+    return {"K2": rf.riccati_backward_fused, "K3c": tl.riccati_backward_ll}
+
+
+def sweep_run(kid, args, ref, label, shift=0.0, variant=None):
+    """One sweep call on the card: fails unless it ran the variant
+    sweep_variant names (or `variant`) once and is within SWEEP_REL_TOL of
+    the f64 reference ``ref`` (K, kff). Returns the outputs, the relative
+    error and the variant."""
+    import torch
+
+    from qm_door_torch.ops.riccati_fused import sweep_variant
+
+    wrapper = sweep_wrappers()[kid]
+    want = variant or sweep_variant(*args[1].shape[2:])
+    before = dict(wrapper.launches_by_variant)
+    outs = sweep_call(kid, args, shift, variant)
+    torch.cuda.synchronize()
+    ran = {v: cnt - before[v] for v, cnt in wrapper.launches_by_variant.items()
+           if cnt != before[v]}
+    rel, _ = rel_err(outs, ref)
+    if ran != {want: 1}:
+        raise RuntimeError(f"{kid} {label}: launched {ran}, expected one {want}")
+    if not (rel <= SWEEP_REL_TOL and np.isfinite(rel)):
+        raise RuntimeError(f"{kid} {label} ({want}): relative error {rel:.3e} > {SWEEP_REL_TOL}")
+    return outs, rel, want
+
+
+def check_sweep_shapes(dev):
+    """(d) K2 and K3c off the path's shape: each of SWEEP_SHAPES with and
+    without a shift, against sweep_plain in f64, through the variant
+    sweep_variant names."""
+    import torch
+
+    from qm_door_torch.ops.riccati_fused import sweep_plain
+
+    ran = {}
+    for shape in SWEEP_SHAPES:
+        data = sweep_data(shape)
+        args = [torch.tensor(t, dtype=torch.float32, device=dev) for t in data]
+        f64 = [torch.tensor(t, device=dev) for t in data]
+        for shift in (0.0, SWEEP_SHIFT):
+            for kid, symmetrize in (("K2", True), ("K3c", False)):
+                ref = sweep_plain(*f64, shift, symmetrize)
+                label = f"{'x'.join(map(str, shape))} shift {shift}"
+                _, rel, variant = sweep_run(kid, args, ref, label, shift)
+                ran[f"{kid} {label}"] = [variant, rel]
+    log(f"[d] sweep shapes (variant, relative error): ok {json.dumps(ran)}")
 
 
 def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20, **extra):
@@ -633,6 +768,29 @@ def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20
     return row, outs
 
 
+def sweep_turns(row, args, ref, symmetrize, reps=20):
+    """The path's sweep variant and the other one on the same inputs: each
+    held against the f64 reference, then timed in turns (other, path, path,
+    other) in chained calls; `ms` becomes the path variant's mean, `ms_<v>`
+    the other's; the phase clocks of both."""
+    from qm_door_torch.ops.riccati_fused import VARIANTS, sweep_variant
+
+    kid = row["id"]
+    path = sweep_variant(*args[1].shape[2:])
+    other = next(v for v in VARIANTS if v != path)
+    _, row[f"rel_err_{other}"], _ = sweep_run(kid, args, ref, "path data", variant=other)
+    turns = {}
+    for i, v in enumerate((other, path, path, other)):
+        turns[f"{v}_{i}"] = cuda_ms(lambda v=v: sweep_call(kid, args, variant=v), reps=reps)
+    mean = lambda v: float(np.mean([t for k, t in turns.items() if k.startswith(v)]))  # noqa: E731
+    row.update(variant=path, ms=mean(path), ms_turns=turns, **{f"ms_{other}": mean(other)},
+               phase_cycles_per_node={v: sweep_phases(args, symmetrize, v) for v in VARIANTS},
+               phase_clock_build_spills=SWEEP_CLOCK_SPILLS)
+    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in (
+        "variant", "ms", f"ms_{other}", "ms_turns", f"rel_err_{other}",
+        "phase_cycles_per_node", "phase_clock_build_spills")}))
+
+
 def phase_new_kernels(dev, main):
     """(d) K2, K3a-d on (b)'s warm-iterate data and K1-ll, each against its
     plain version in f64; timed beside its bound; the refusals."""
@@ -654,11 +812,11 @@ def phase_new_kernels(dev, main):
     k2_args = [c(t) for t in (plq.A, plq.B, plq.d, plq.lx, plq.lu, plq.lxx, plq.luu, plq.lux,
                               plq.lxx_f, plq.lx_f)]
     nbytes, flops = sweep_cost(B, N, 30, 30)
+    ref = rf.riccati_backward_fused_plain(*f64(k2_args))
     rows["K2"], _ = kernel_row(
         "K2", "riccati_backward_fused", rf.riccati_backward_fused,
-        rf.riccati_backward_fused_plain, k2_args,
-        rf.riccati_backward_fused_plain(*f64(k2_args)), SWEEP_REL_TOL, nbytes, flops,
-        phase_cycles_per_node=sweep_phases(k2_args, True))
+        rf.riccati_backward_fused_plain, k2_args, ref, SWEEP_REL_TOL, nbytes, flops)
+    sweep_turns(rows["K2"], k2_args, ref, True)
 
     # K3a -> K3b -> K3c -> K3d on the linearization, as backend lq_fused
     # chains them (each fed the previous kernel's outputs)
@@ -678,11 +836,12 @@ def phase_new_kernels(dev, main):
         cost_args, tl.project_cost_plain(*f64(cost_args), shift=shift), PROJECTION_REL_TOL,
         4 * B * N * floats, B * N * fl, reps=50)
     bwd_args = [A_bar, B_bar, d_bar, lxb, lub, lxxb, luub, luxb, c(lq.lxx_f), c(lq.lx_f)]
-    nbytes, flops = sweep_cost(B, N, 30, 30)
+    ref = tl.riccati_backward_ll_plain(*f64(bwd_args))
     rows["K3c"], (K, kff) = kernel_row(
         "K3c", "riccati_backward_ll", tl.riccati_backward_ll, tl.riccati_backward_ll_plain,
-        bwd_args, tl.riccati_backward_ll_plain(*f64(bwd_args)), SWEEP_REL_TOL, nbytes, flops,
-        phase_cycles_per_node=sweep_phases(bwd_args, False))
+        bwd_args, ref, SWEEP_REL_TOL, nbytes, flops)
+    sweep_turns(rows["K3c"], bwd_args, ref, False)
+    check_sweep_shapes(dev)
     fwd_args = [A_bar, B_bar, d_bar, K, kff, p, P, Px_v, fm, c(x_batch - X[:, 0])]
     floats, fl = NODE_COST["K3d"]
     rows["K3d"], _ = kernel_row(
@@ -769,7 +928,7 @@ def phase_backends(dev, main):
                 lq, cons.velocity_row_mask(flags), torch.repeat_interleave(flags, 3, dim=-1),
                 U[:, :, :12], dx0, shift=shift)},
     }
-    launches = {}
+    launches, by_variant = {}, {}
     for backend, fns in stages.items():
         run = drive(dev, backend, "e")
         stage_ms, device = {}, {}
@@ -787,7 +946,8 @@ def phase_backends(dev, main):
         log("[e] " + json.dumps(result))
         phase_cross_precision(dev, backend, "e")
         launches.update({k: v for k, v in run["launches"].items() if v})
-    return launches
+        by_variant.update({k: v for k, v in run["sweep_variants"].items() if run["launches"][k]})
+    return launches, by_variant
 
 
 def phase_cross_precision(dev, backend="bm_k1", tag="c"):
@@ -855,7 +1015,7 @@ def main():
     main_path = phase_main_path(dev)
     phase_cross_precision(dev)
     new_rows = phase_new_kernels(dev, main_path)
-    path_launches = phase_backends(dev, main_path)
+    path_launches, sweep_by_variant = phase_backends(dev, main_path)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -890,6 +1050,10 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None, "rel_err": r["rel_err"],
             "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
             "flops": r["flops"]})
+        if kid in sweep_by_variant:  # K2, K3c: the (e) run's launches by variant, and (d)'s
+            kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
+                "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",
+                "phase_clock_build_spills")}, launches_by_variant=sweep_by_variant[kid])
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,6 +22,21 @@
 //
 // Used by spd_solve.cu (K1). Pure f32 on the CUDA cores: the solver chain
 // keeps true f32 (no tensor cores, no TF32).
+//
+// Register-lean forms, for a caller whose other phases cap its registers
+// (riccati_bwd.cu, K2/K3c: 256-thread blocks at 3 blocks an SM, 80
+// registers a thread, where factor() and solve() as they are would spill):
+//   load_rows_ld()       load_rows() with a row stride of its own (the
+//                        sweep's odd stride) and no shift.
+//   factor_lean()        factor()'s arithmetic, but each shuffled A_jk goes
+//                        straight into its update (no s[NP]), and lane k
+//                        keeps only its own pivot's 1 / L_kk (no ivd[NP]).
+//   store_factor_lean()  store_factor(), then each lane's 1 / L_ii over the
+//                        diagonal of sLt and sL (the solve reads no L_ii).
+//   solve_lean()         solve() for one column a lane, reading L as
+//                        float4 chunks inside each step (no col[NP] /
+//                        row[NP]) and 1 / L_ii from the chunk that holds the
+//                        diagonal.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -197,6 +212,111 @@ __device__ __forceinline__ void solve(float (&z)[CPL][NP], const float* sLt, con
 #pragma unroll
       for (int r = 0; r < NP; ++r)
         if (r < i) z[c][r] = fmaf(-row[r], xi, z[c][r]);
+    }
+  }
+}
+
+// --- register-lean forms (see the note at the top) ---------------------------
+
+// Lane i (< n) takes row i of A's lower triangle from sA (row stride ld);
+// lanes n..NP-1 take identity rows; entries above the diagonal start at 0.
+template <int NP>
+__device__ __forceinline__ void load_rows_ld(float (&a)[NP], const float* sA, int n, int ld,
+                                             int lane) {
+  const bool real = lane < n;
+  const float* row = sA + lane * ld;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    float v = (real && j <= lane) ? row[j] : 0.0f;
+    if (j == lane && !real) v = 1.0f;
+    a[j] = v;
+  }
+}
+
+// factor()'s pivots, in the same order and rounding: a[j] = L[i][j] for
+// j <= i on lane i, and `ivd` = 1 / L[i][i] on lane i.
+template <int NP>
+__device__ __forceinline__ void factor_lean(float (&a)[NP], float& ivd, int lane) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const float inv = rsqrtf(fmaxf(__shfl_sync(kFull, a[k], k), 1e-30f));
+    const float l = a[k] * inv;
+    const float l_inv = l * inv;
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      if (j > k) a[j] = fmaf(-l_inv, __shfl_sync(kFull, a[k], j), a[j]);
+    a[k] = l;
+    if (lane == k) ivd = inv;
+  }
+}
+
+// store_factor(), with 1 / L_ii in place of L_ii on both diagonals.
+template <int NP>
+__device__ __forceinline__ void store_factor_lean(const float (&a)[NP], float ivd, float* sLt,
+                                                  float* sL, int lane) {
+  store_factor<NP>(a, sLt, sL, lane);
+  if (lane < NP) {
+    sLt[lane * NP + lane] = ivd;
+    sL[lane * row_stride<NP>() + lane] = ivd;
+  }
+}
+
+// solve() for the one column z a lane holds, on store_factor_lean()'s
+// layout: step i reads the float4 chunks of column (row) i of L that hold
+// the diagonal and the rows below (above) it, one chunk at a time.
+template <int NP>
+__device__ __forceinline__ void solve_lean(float (&z)[NP], const float* sLt, const float* sL) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {  // forward: z_i *= 1/L_ii, z_r -= L_ri z_i (r > i)
+    const float4* col = reinterpret_cast<const float4*>(sLt + i * NP);
+    float zi = 0.0f;
+#pragma unroll
+    for (int q = 0; q < NP / 4; ++q) {
+      if (4 * q + 3 >= i) {
+        const float4 v = col[q];
+        const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * q + e;
+          if (r == i) {
+            zi = z[i] * w[e];
+            z[i] = zi;
+          } else if (r > i) {
+            z[r] = fmaf(-w[e], zi, z[r]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = NP - 1; i >= 0; --i) {  // back: x_i = z_i / L_ii, z_r -= L_ir x_i (r < i)
+    const float4* row = reinterpret_cast<const float4*>(sL + i * row_stride<NP>());
+    float xi = 0.0f;
+#pragma unroll
+    for (int q = 0; q < NP / 4; ++q) {  // the chunk with the diagonal first
+      if (q == i / 4) {
+        const float4 v = row[q];
+        const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e == i) {
+            xi = z[i] * w[e];
+            z[i] = xi;
+          }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < i) z[4 * q + e] = fmaf(-w[e], xi, z[4 * q + e]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NP / 4; ++q) {
+      if (4 * q + 3 < i) {
+        const float4 v = row[q];
+        z[4 * q] = fmaf(-v.x, xi, z[4 * q]);
+        z[4 * q + 1] = fmaf(-v.y, xi, z[4 * q + 1]);
+        z[4 * q + 2] = fmaf(-v.z, xi, z[4 * q + 2]);
+        z[4 * q + 3] = fmaf(-v.w, xi, z[4 * q + 3]);
+      }
     }
   }
 }

@@ -27,33 +27,65 @@
 // 67 nodes are a serial chain, and each node is a chain of small products,
 // a 30-step Cholesky and two 30-step substitutions.
 //
-// Design: one block of 256 threads (8 warps) per scenario, not K1's one warp
-// per system. The carry S, s and every node's data live in shared memory
-// for the whole sweep; nothing but K and kff goes back to HBM, once. Each
-// node's data is loaded coalesced into shared memory; every product is a
-// sum over the leading index (X^T Y), computed in 2 x 4 register tiles
-// spread over the block's threads (shared-memory bandwidth is what the
-// products are bound by), and the symmetric forms as 1/2 (M + M^T) of one
-// product M, which keeps them exactly symmetric. The Cholesky runs on the
-// lower triangle of Quu in shared memory (odd row stride), block-parallel
-// over the trailing update (warps over rows, lanes over columns), with one
-// __syncthreads per pivot: column k is scaled one step late, while step k+1
-// updates columns > k+1. The two substitutions keep the right-hand sides in
-// registers: each warp takes every 8th of the nx + 1 columns, its lanes the
-// rows (lane and lane + 32), and each solved entry reaches the other rows by
-// a shuffle; they multiply by 1 / L_ii instead of dividing. K2 symmetrizes
-// lxx, luu and lxx_f on the fly (reads (i,j) and (j,i)); K3c reads them as
-// given. The 8 warps run 3 blocks an SM, so the 384 scenarios fit one wave.
-// Generic nx, nu <= 36 (nu = 36 is the force-tracking width); no batch
+// Design: one block per scenario, 3 blocks an SM, so the 384 scenarios fit
+// one wave. The carry S, s and every node's data live in shared memory for
+// the whole sweep; nothing but K and kff goes back to HBM, once. Each node's
+// data is loaded coalesced into shared memory; every product is a sum over
+// the leading index (X^T Y), computed in 2 x 4 register tiles spread over
+// the block's threads (shared-memory bandwidth is what the products are
+// bound by), and the symmetric forms as 1/2 (M + M^T) of one product M,
+// which keeps them exactly symmetric. K2 symmetrizes lxx, luu and lxx_f on
+// the fly (reads (i,j) and (j,i)); K3c reads them as given.
+//
+// Two variants differ in the Cholesky and the solve of
+// [K | kff] = -Quu^-1 [Qux | Qu] and in their block (one C entry point
+// each; ops/riccati_fused.py:sweep_variant picks one by shape):
+// - reg (nu <= 32, the solver's path), 128 threads (4 warps): one warp, on
+//   chol_warp.cuh's register-lean routines. Lane i loads row i of Quu
+//   (padded to 32 with identity rows) and the warp factors it with
+//   shuffles, no barrier per pivot; it stores L by columns and by rows,
+//   with 1 / L_ii on the diagonal; then lane c solves column c of the
+//   nx + 1 right-hand sides in registers, reading L as warp-uniform float4
+//   chunks. nx + 1 > 32 (nx up to 36) takes a second warp for columns 32..,
+//   behind a 64-thread named barrier. L's two copies add 8.5 KB of shared
+//   memory a block. Registers: the factor is what needs them (ptxas
+//   schedules each pivot's shuffles ahead of the last pivot's updates);
+//   128 threads at 3 blocks an SM give 168 and no spills, where 256 or 224
+//   threads (80 registers) and 192 (96) spill. The node's Layout is carved
+//   anew from opaque dims before the factor and after the solve (see
+//   opaque()), so nothing derived from the dims rides over them in a
+//   register.
+// - smem (32 < nu <= 36, up to the force-tracking width), 256 threads (8
+//   warps, 80 registers): the block-parallel Cholesky on the lower triangle
+//   of Quu in shared memory (odd row stride; warps over rows, lanes over
+//   columns of the trailing update), one __syncthreads per pivot, column k
+//   scaled one step late; then two substitutions with each warp on every
+//   8th column and its lanes on the rows (lane and lane + 32), each solved
+//   entry passed on by a shuffle.
+// Both multiply by 1 / L_ii instead of dividing. Generic nx <= 36; no batch
 // padding, no lanes-last layout. f32 FMAs on the CUDA cores, no tensor
 // cores: the chain needs true f32.
 
 #include <cuda_runtime.h>
 
+#include "chol_warp.cuh"
+
 // Diagnostic build (-DQM_SWEEP_PHASE_CLOCKS, chip_smoke.py phase (d)): each
 // thread sums the clock64() cycles of the six phases of a node (load, SA/SB,
 // Q terms, Cholesky, substitutions, S update); block 0's thread 0 writes its
 // sums to `clocks`. The normal build compiles PHASE to nothing.
+// The reg variant's block shape: threads a block and the blocks an SM it is
+// compiled for, which set its registers a thread (ptxas: 168 at 128 x 3,
+// 128 at 128 x 4, 96 at 192 x 3, 80 at 224 or 256 x 3). 128 x 3 is the
+// normal build: the widest shape whose factor does not spill. Other shapes
+// are measuring builds (sweep_launch_shapes.py at the repository root).
+#ifndef QM_SWEEP_REG_THREADS
+#define QM_SWEEP_REG_THREADS 128
+#endif
+#ifndef QM_SWEEP_REG_BLOCKS
+#define QM_SWEEP_REG_BLOCKS 3
+#endif
+
 #ifdef QM_SWEEP_PHASE_CLOCKS
 #define PHASE(ph)                                \
   {                                              \
@@ -67,10 +99,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // smem variant's block
 constexpr int kWarp = 32;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMaxDim = 36;  // rows live in lanes lane and lane + 32
+constexpr int kMaxDim = 36;    // smem variant: rows live in lanes lane and lane + 32
+constexpr int kRegMaxNu = 32;  // reg variant: Quu in one warp's registers, a row a lane
+constexpr int kNP = 32;        // its padded size (rows nu..31 are identity)
 constexpr int kColsPerWarp = (kMaxDim + 1 + kWarps - 1) / kWarps;  // nx + 1 right-hand sides
 constexpr int kSlack = 8;  // floats after the last buffer, for tile over-reads
 constexpr int kRowsPerWarp = (kMaxDim - 1 + kWarps - 1) / kWarps;   // trailing rows of a pivot
@@ -110,45 +144,86 @@ __device__ __forceinline__ void tile_tn(const float* X, int ldx, const float* Y,
   }
 }
 
-__host__ __device__ inline int smem_floats(int nx, int nu) {
+// The shared buffers of one block (smem_floats() floats). The reg variant
+// keeps L twice (sLt by columns, sL by rows, 16-byte aligned) in front of
+// the buffers both variants share.
+struct Layout {
+  int nx, nu, nxx, nxu, nuu;
+  int ldf;  // F's odd row stride: lanes walking a column hit distinct banks
+  int m;    // right-hand sides [Qux | Qu]
+  float *sLt, *sL;  // reg: L by columns and by rows
+  float *S;         // nx x nx carry
+  float *A, *Bm;    // nx x nx, nx x nu
+  float *lxx;       // nx x nx
+  float *SA, *Qxx;  // nx x nx
+  float *SB;        // nx x nu
+  float *Qux;       // nu x nx (lux, then Qux in place)
+  float *luu;       // nu x nu
+  float *F;         // nu x ldf: Quu, then (smem) L in its lower triangle
+  float *X;         // nu x m: [Qux | Qu], then the solution
+  float *s, *d;     // nx carry, nx
+  float *Qx, *Sd;   // nx (lx, then Qx in place), nx
+  float *invd;      // smem: nu pivots' rsqrt
+  float *lu;        // nu
+  float *rinv;      // smem: nu of 1 / L_ii
+
+  __device__ __forceinline__ Layout(float* sm, int nx_, int nu_, bool reg)
+      : nx(nx_), nu(nu_), nxx(nx_ * nx_), nxu(nx_ * nu_), nuu(nu_ * nu_), ldf(nu_ | 1),
+        m(nx_ + 1) {
+    sLt = sm;
+    sL = sLt + kNP * kNP;
+    S = sm + (reg ? chol_warp::factor_floats<kNP>() : 0);
+    A = S + nxx;
+    Bm = A + nxx;
+    lxx = Bm + nxu;
+    SA = lxx + nxx;
+    Qxx = SA + nxx;
+    SB = Qxx + nxx;
+    Qux = SB + nxu;
+    luu = Qux + nxu;
+    F = luu + nuu;
+    X = F + nu * ldf;
+    s = X + nu * m;
+    d = s + nx;
+    Qx = d + nx;
+    Sd = Qx + nx;
+    invd = Sd + nx;
+    lu = invd + nu;
+    rinv = lu + nu;
+  }
+};
+
+__host__ __device__ inline int smem_floats(int nx, int nu, bool reg) {
   const int nxx = nx * nx, nxu = nx * nu;
-  return 5 * nxx + 3 * nxu + nu * nu + nu * (nu | 1) + nu * (nx + 1) + 4 * nx + 3 * nu + kSlack;
+  return (reg ? chol_warp::factor_floats<kNP>() : 0) + 5 * nxx + 3 * nxu + nu * nu +
+         nu * (nu | 1) + nu * (nx + 1) + 4 * nx + 3 * nu + kSlack;
 }
 
-// 3 blocks an SM (<= 85 registers a thread): the 384 scenarios of the
-// solver's path then run in one wave on 132 SMs.
-template <bool kSym>
-__global__ void __launch_bounds__(kThreads, 3)
+// v, which the compiler must treat as unknown in the reg variant. Each node
+// and its S update carve the Layout from opaque dims, so no pointer, stride
+// or tile origin derived from them is hoisted out of the node loop and held
+// in a register over the factor and solve, which need the registers.
+template <bool kOpaque>
+__device__ __forceinline__ int opaque(int v) {
+  if constexpr (kOpaque) asm volatile("" : "+r"(v));
+  return v;
+}
+
+// 3 blocks an SM: the 384 scenarios of the solver's path then run in one
+// wave on 132 SMs. kReg selects the reg variant's Cholesky and solve
+// (nu <= 32), else the smem variant's.
+template <bool kSym, bool kReg>
+__global__ void __launch_bounds__(kReg ? QM_SWEEP_REG_THREADS : kThreads,
+                                  kReg ? QM_SWEEP_REG_BLOCKS : 3)
 riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
                    const float* __restrict__ gd, const float* __restrict__ glx,
                    const float* __restrict__ glu, const float* __restrict__ glxx,
                    const float* __restrict__ gluu, const float* __restrict__ glux,
                    const float* __restrict__ glxx_f, const float* __restrict__ glx_f,
                    float* __restrict__ gK, float* __restrict__ gkff,
-                   int N, int nx, int nu, float shift, long long* clocks) {
-  extern __shared__ float sm[];
-  const int nxx = nx * nx, nxu = nx * nu, nuu = nu * nu;
-  const int ldf = nu | 1;  // odd row stride: lanes walking a column hit distinct banks
-  const int m = nx + 1;    // right-hand sides [Qux | Qu]
-  float* S = sm;            // nx x nx carry
-  float* A = S + nxx;       // nx x nx
-  float* Bm = A + nxx;      // nx x nu
-  float* lxx = Bm + nxu;    // nx x nx
-  float* SA = lxx + nxx;    // nx x nx
-  float* Qxx = SA + nxx;    // nx x nx
-  float* SB = Qxx + nxx;    // nx x nu
-  float* Qux = SB + nxu;    // nu x nx (lux, then Qux in place)
-  float* luu = Qux + nxu;   // nu x nu
-  float* F = luu + nuu;     // nu x ldf: Quu, then L in its lower triangle
-  float* X = F + nu * ldf;  // nu x m: [Qux | Qu], then the solution
-  float* s = X + nu * m;    // nx carry
-  float* d = s + nx;        // nx
-  float* Qx = d + nx;       // nx (lx, then Qx in place)
-  float* Sd = Qx + nx;      // nx
-  float* invd = Sd + nx;    // nu pivots' rsqrt
-  float* lu = invd + nu;    // nu
-  float* rinv = lu + nu;    // nu: 1 / L_ii
-
+                   int N, int nx_in, int nu_in, float shift, long long* clocks) {
+  constexpr int kT = kReg ? QM_SWEEP_REG_THREADS : kThreads;
+  extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid / kWarp, lane = tid % kWarp;
@@ -157,64 +232,68 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
   long long phase_start = clock64();
 #endif
 
-  const float* Sf = glxx_f + (size_t)b * nxx;
-  for (int idx = tid; idx < nxx; idx += kThreads) {
-    const int i = idx / nx, j = idx - i * nx;
-    S[idx] = kSym ? 0.5f * (Sf[idx] + Sf[j * nx + i]) : Sf[idx];
+  {
+    const Layout lay(sm, nx_in, nu_in, kReg);
+    const float* Sf = glxx_f + (size_t)b * lay.nxx;
+    for (int idx = tid; idx < lay.nxx; idx += kT) {
+      const int i = idx / lay.nx, j = idx - i * lay.nx;
+      lay.S[idx] = kSym ? 0.5f * (Sf[idx] + Sf[j * lay.nx + i]) : Sf[idx];
+    }
+    for (int i = tid; i < lay.nx; i += kT) lay.s[i] = glx_f[(size_t)b * lay.nx + i];
   }
-  for (int i = tid; i < nx; i += kThreads) s[i] = glx_f[(size_t)b * nx + i];
 
   for (int k = N - 1; k >= 0; --k) {
     const size_t node = (size_t)b * N + k;
+    const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg);
     // --- the previous node's carry: S <- Qxx + 1/2 (M + M^T), M = Qux^T K in
     // S; and this node's data, coalesced, into shared memory ----------------
     if (k < N - 1) {
-      for (int idx = tid; idx < nxx; idx += kThreads) {
-        const int i = idx / nx, j = idx - i * nx;
+      for (int idx = tid; idx < lay.nxx; idx += kT) {
+        const int i = idx / lay.nx, j = idx - i * lay.nx;
         if (j > i) continue;
-        const float h = 0.5f * (S[idx] + S[j * nx + i]);
-        S[idx] = Qxx[idx] + h;
-        S[j * nx + i] = Qxx[j * nx + i] + h;
+        const float h = 0.5f * (lay.S[idx] + lay.S[j * lay.nx + i]);
+        lay.S[idx] = lay.Qxx[idx] + h;
+        lay.S[j * lay.nx + i] = lay.Qxx[j * lay.nx + i] + h;
       }
     }
-    for (int idx = tid; idx < nxx; idx += kThreads) {
-      A[idx] = gA[node * nxx + idx];
-      lxx[idx] = glxx[node * nxx + idx];
+    for (int idx = tid; idx < lay.nxx; idx += kT) {
+      lay.A[idx] = gA[node * lay.nxx + idx];
+      lay.lxx[idx] = glxx[node * lay.nxx + idx];
     }
-    for (int idx = tid; idx < nxu; idx += kThreads) {
-      Bm[idx] = gB[node * nxu + idx];
-      Qux[idx] = glux[node * nxu + idx];
+    for (int idx = tid; idx < lay.nxu; idx += kT) {
+      lay.Bm[idx] = gB[node * lay.nxu + idx];
+      lay.Qux[idx] = glux[node * lay.nxu + idx];
     }
-    for (int idx = tid; idx < nuu; idx += kThreads) luu[idx] = gluu[node * nuu + idx];
-    for (int i = tid; i < nx; i += kThreads) {
-      d[i] = gd[node * nx + i];
-      Qx[i] = glx[node * nx + i];
+    for (int idx = tid; idx < lay.nuu; idx += kT) lay.luu[idx] = gluu[node * lay.nuu + idx];
+    for (int i = tid; i < lay.nx; i += kT) {
+      lay.d[i] = gd[node * lay.nx + i];
+      lay.Qx[i] = glx[node * lay.nx + i];
     }
-    for (int i = tid; i < nu; i += kThreads) lu[i] = glu[node * nu + i];
+    for (int i = tid; i < lay.nu; i += kT) lay.lu[i] = glu[node * lay.nu + i];
     __syncthreads(); PHASE(0);
 
     // --- SA = S^T A, SB = S^T B (2 x 4 tiles), Sd = S^T d + s ----------------
     {
-      const int tA = tiles(nx, nx), tB = tiles(nx, nu);
-      for (int w = tid; w < tA + tB + nx; w += kThreads) {
+      const int tA = tiles(lay.nx, lay.nx), tB = tiles(lay.nx, lay.nu);
+      for (int w = tid; w < tA + tB + lay.nx; w += kT) {
         if (w < tA + tB) {
           const bool a = w < tA;
-          const int r = a ? nx : nu;
+          const int r = a ? lay.nx : lay.nu;
           int i0, j0;
           tile_origin(a ? w : w - tA, r, i0, j0);
           float acc[2][4];
-          tile_tn(S, nx, a ? A : Bm, r, nx, i0, j0, acc);
-          float* out = a ? SA : SB;
+          tile_tn(lay.S, lay.nx, a ? lay.A : lay.Bm, r, lay.nx, i0, j0, acc);
+          float* out = a ? lay.SA : lay.SB;
 #pragma unroll
           for (int u = 0; u < 2; ++u)
 #pragma unroll
             for (int v = 0; v < 4; ++v)
-              if (i0 + u < nx && j0 + v < r) out[(i0 + u) * r + j0 + v] = acc[u][v];
+              if (i0 + u < lay.nx && j0 + v < r) out[(i0 + u) * r + j0 + v] = acc[u][v];
         } else {
           const int i = w - tA - tB;
           float acc = 0.0f;
-          for (int q = 0; q < nx; ++q) acc = fmaf(S[q * nx + i], d[q], acc);
-          Sd[i] = acc + s[i];
+          for (int q = 0; q < lay.nx; ++q) acc = fmaf(lay.S[q * lay.nx + i], lay.d[q], acc);
+          lay.Sd[i] = acc + lay.s[i];
         }
       }
     }
@@ -222,18 +301,18 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 
     // --- A^T SA (into Qxx), B^T SB (into F, full), Qux = lux + B^T SA, Qx, Qu
     {
-      const int tX = tiles(nx, nx), tU = tiles(nu, nu), tQ = tiles(nu, nx);
-      for (int w = tid; w < tX + tU + tQ + nx + nu; w += kThreads) {
+      const int tX = tiles(lay.nx, lay.nx), tU = tiles(lay.nu, lay.nu), tQ = tiles(lay.nu, lay.nx);
+      for (int w = tid; w < tX + tU + tQ + lay.nx + lay.nu; w += kT) {
         if (w < tX + tU + tQ) {
           const int which = w < tX ? 0 : (w < tX + tU ? 1 : 2);
           const int v0 = which == 0 ? w : (which == 1 ? w - tX : w - tX - tU);
-          const int p = which == 0 ? nx : nu, r = which == 1 ? nu : nx;
+          const int p = which == 0 ? lay.nx : lay.nu, r = which == 1 ? lay.nu : lay.nx;
           int i0, j0;
           tile_origin(v0, r, i0, j0);
           float acc[2][4];
-          if (which == 0) tile_tn(A, nx, SA, nx, nx, i0, j0, acc);
-          else if (which == 1) tile_tn(Bm, nu, SB, nu, nx, i0, j0, acc);
-          else tile_tn(Bm, nu, SA, nx, nx, i0, j0, acc);
+          if (which == 0) tile_tn(lay.A, lay.nx, lay.SA, lay.nx, lay.nx, i0, j0, acc);
+          else if (which == 1) tile_tn(lay.Bm, lay.nu, lay.SB, lay.nu, lay.nx, i0, j0, acc);
+          else tile_tn(lay.Bm, lay.nu, lay.SA, lay.nx, lay.nx, i0, j0, acc);
 #pragma unroll
           for (int u = 0; u < 2; ++u)
 #pragma unroll
@@ -241,25 +320,25 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
               const int i = i0 + u, j = j0 + v;
               if (i >= p || j >= r) continue;
               if (which == 0) {
-                Qxx[i * nx + j] = acc[u][v];
+                lay.Qxx[i * lay.nx + j] = acc[u][v];
               } else if (which == 1) {
-                F[i * ldf + j] = acc[u][v];
+                lay.F[i * lay.ldf + j] = acc[u][v];
               } else {
-                const float q = Qux[i * nx + j] + acc[u][v];
-                Qux[i * nx + j] = q;
-                X[i * m + j] = q;
+                const float q = lay.Qux[i * lay.nx + j] + acc[u][v];
+                lay.Qux[i * lay.nx + j] = q;
+                lay.X[i * lay.m + j] = q;
               }
             }
-        } else if (w < tX + tU + tQ + nx) {
+        } else if (w < tX + tU + tQ + lay.nx) {
           const int i = w - tX - tU - tQ;
           float acc = 0.0f;
-          for (int q = 0; q < nx; ++q) acc = fmaf(A[q * nx + i], Sd[q], acc);
-          Qx[i] = Qx[i] + acc;
+          for (int q = 0; q < lay.nx; ++q) acc = fmaf(lay.A[q * lay.nx + i], lay.Sd[q], acc);
+          lay.Qx[i] = lay.Qx[i] + acc;
         } else {
-          const int i = w - tX - tU - tQ - nx;
+          const int i = w - tX - tU - tQ - lay.nx;
           float acc = 0.0f;
-          for (int q = 0; q < nx; ++q) acc = fmaf(Bm[q * nu + i], Sd[q], acc);
-          X[i * m + nx] = lu[i] + acc;
+          for (int q = 0; q < lay.nx; ++q) acc = fmaf(lay.Bm[q * lay.nu + i], lay.Sd[q], acc);
+          lay.X[i * lay.m + lay.nx] = lay.lu[i] + acc;
         }
       }
     }
@@ -268,145 +347,190 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
     // --- Qxx = lxx + 1/2 (M + M^T); Quu = luu + 1/2 (M + M^T) (+ shift I)
     // into F's lower triangle; K3c reads luu's upper triangle, as the TPU's
     // _chol_t reads rows ------------------------------------------------------
-    for (int idx = tid; idx < nxx + nuu; idx += kThreads) {
-      if (idx < nxx) {
-        const int i = idx / nx, j = idx - i * nx;
+    for (int idx = tid; idx < lay.nxx + lay.nuu; idx += kT) {
+      if (idx < lay.nxx) {
+        const int i = idx / lay.nx, j = idx - i * lay.nx;
         if (j > i) continue;
-        const float h = 0.5f * (Qxx[idx] + Qxx[j * nx + i]);
-        const float lij = kSym ? 0.5f * (lxx[idx] + lxx[j * nx + i]) : lxx[idx];
-        const float lji = kSym ? lij : lxx[j * nx + i];
-        Qxx[idx] = lij + h;
-        Qxx[j * nx + i] = lji + h;
+        const float h = 0.5f * (lay.Qxx[idx] + lay.Qxx[j * lay.nx + i]);
+        const float lij = kSym ? 0.5f * (lay.lxx[idx] + lay.lxx[j * lay.nx + i]) : lay.lxx[idx];
+        const float lji = kSym ? lij : lay.lxx[j * lay.nx + i];
+        lay.Qxx[idx] = lij + h;
+        lay.Qxx[j * lay.nx + i] = lji + h;
       } else {
-        const int r = idx - nxx, i = r / nu, j = r - i * nu;
+        const int r = idx - lay.nxx, i = r / lay.nu, j = r - i * lay.nu;
         if (j > i) continue;
-        const float h = 0.5f * (F[i * ldf + j] + F[j * ldf + i]);
-        const float l = kSym ? 0.5f * (luu[i * nu + j] + luu[j * nu + i]) : luu[j * nu + i];
-        F[i * ldf + j] = l + h + (i == j ? shift : 0.0f);
+        const float h = 0.5f * (lay.F[i * lay.ldf + j] + lay.F[j * lay.ldf + i]);
+        const float l = kSym ? 0.5f * (lay.luu[i * lay.nu + j] + lay.luu[j * lay.nu + i])
+                             : lay.luu[j * lay.nu + i];
+        lay.F[i * lay.ldf + j] = l + h + (i == j ? shift : 0.0f);
       }
     }
     __syncthreads(); PHASE(2);
 
-    // --- Cholesky of F's lower triangle, one barrier per pivot ---------------
-    // Step c: pivot rsqrt, trailing update of columns > c (warps over rows,
-    // lanes over columns; every load of the step is issued before its
-    // stores), and the scaling of column c-1, which step c does not read.
-    for (int c = 0; c < nu; ++c) {
-      const float inv = rsqrtf(fmaxf(F[c * ldf + c], 1e-30f));
-      if (tid == 0) invd[c] = inv;
-      if (c > 0 && tid <= nu - c) F[(c - 1 + tid) * ldf + c - 1] *= invd[c - 1];
-      const int j0 = c + 1 + lane, j1 = j0 + kWarp;
-      const float ljc0 = j0 < nu ? F[j0 * ldf + c] * inv : 0.0f;
-      const float ljc1 = j1 < nu ? F[j1 * ldf + c] * inv : 0.0f;
-      float lic[kRowsPerWarp], f0[kRowsPerWarp], f1[kRowsPerWarp];
+    if constexpr (kReg) {
+      // --- Cholesky and solve on chol_warp.cuh's register routines: warp 0
+      // factors Quu (lane i row i, padded to kNP with identity rows) and
+      // stores L; then lane c of warps 0 .. nsolve-1 solves column c of
+      // [Qux | Qu] (m <= 32: warp 0 alone, no barrier; m > 32: warps 0 and 1
+      // behind a 64-thread named barrier). No barrier per pivot.
+      const int nsolve = (lay.m + kWarp - 1) / kWarp;
+      if (warp < nsolve) {
+        if (warp == 0) {
+          float a[kNP];
+          float ivd = 1.0f;
+          chol_warp::load_rows_ld<kNP>(a, lay.F, lay.nu, lay.ldf, lane);
+          chol_warp::factor_lean<kNP>(a, ivd, lane);
+          chol_warp::store_factor_lean<kNP>(a, ivd, lay.sLt, lay.sL, lane);
+          PHASE(3);
+        }
+        if (nsolve > 1)
+          asm volatile("bar.sync 1, %0;" ::"n"(2 * kWarp) : "memory");
+        else
+          __syncwarp();
+        const int c = warp * kWarp + lane;
+        float z[kNP];
 #pragma unroll
-      for (int t = 0; t < kRowsPerWarp; ++t) {
-        const int i = c + 1 + warp + kWarps * t;
-        lic[t] = i < nu ? F[i * ldf + c] * inv : 0.0f;
-        f0[t] = (i < nu && j0 <= i) ? F[i * ldf + j0] : 0.0f;
-        f1[t] = (i < nu && j1 <= i) ? F[i * ldf + j1] : 0.0f;
-      }
+        for (int r = 0; r < kNP; ++r)
+          z[r] = (c < lay.m && r < lay.nu) ? lay.X[r * lay.m + c] : 0.0f;
+        chol_warp::solve_lean<kNP>(z, lay.sLt, lay.sL);
+        if (c < lay.m) {
 #pragma unroll
-      for (int t = 0; t < kRowsPerWarp; ++t) {
-        const int i = c + 1 + warp + kWarps * t;
-        if (i < nu && j0 <= i) F[i * ldf + j0] = f0[t] - lic[t] * ljc0;
-        if (i < nu && j1 <= i) F[i * ldf + j1] = f1[t] - lic[t] * ljc1;
+          for (int r = 0; r < kNP; ++r)
+            if (r < lay.nu) lay.X[r * lay.m + c] = z[r];
+        }
       }
+      __syncthreads(); PHASE(4);
+    } else {
+      // --- Cholesky of F's lower triangle, one barrier per pivot ---------------
+      // Step c: pivot rsqrt, trailing update of columns > c (warps over rows,
+      // lanes over columns; every load of the step is issued before its
+      // stores), and the scaling of column c-1, which step c does not read.
+      for (int c = 0; c < lay.nu; ++c) {
+        const float inv = rsqrtf(fmaxf(lay.F[c * lay.ldf + c], 1e-30f));
+        if (tid == 0) lay.invd[c] = inv;
+        if (c > 0 && tid <= lay.nu - c) lay.F[(c - 1 + tid) * lay.ldf + c - 1] *= lay.invd[c - 1];
+        const int j0 = c + 1 + lane, j1 = j0 + kWarp;
+        const float ljc0 = j0 < lay.nu ? lay.F[j0 * lay.ldf + c] * inv : 0.0f;
+        const float ljc1 = j1 < lay.nu ? lay.F[j1 * lay.ldf + c] * inv : 0.0f;
+        float lic[kRowsPerWarp], f0[kRowsPerWarp], f1[kRowsPerWarp];
+#pragma unroll
+        for (int t = 0; t < kRowsPerWarp; ++t) {
+          const int i = c + 1 + warp + kWarps * t;
+          lic[t] = i < lay.nu ? lay.F[i * lay.ldf + c] * inv : 0.0f;
+          f0[t] = (i < lay.nu && j0 <= i) ? lay.F[i * lay.ldf + j0] : 0.0f;
+          f1[t] = (i < lay.nu && j1 <= i) ? lay.F[i * lay.ldf + j1] : 0.0f;
+        }
+#pragma unroll
+        for (int t = 0; t < kRowsPerWarp; ++t) {
+          const int i = c + 1 + warp + kWarps * t;
+          if (i < lay.nu && j0 <= i) lay.F[i * lay.ldf + j0] = f0[t] - lic[t] * ljc0;
+          if (i < lay.nu && j1 <= i) lay.F[i * lay.ldf + j1] = f1[t] - lic[t] * ljc1;
+        }
+        __syncthreads(); PHASE(3);
+      }
+      if (tid == 0) lay.F[(lay.nu - 1) * lay.ldf + lay.nu - 1] *= lay.invd[lay.nu - 1];
       __syncthreads(); PHASE(3);
-    }
-    if (tid == 0) F[(nu - 1) * ldf + nu - 1] *= invd[nu - 1];
-    __syncthreads(); PHASE(3);
-    if (tid < nu) rinv[tid] = 1.0f / F[tid * ldf + tid];
-    __syncthreads(); PHASE(3);
+      if (tid < lay.nu) lay.rinv[tid] = 1.0f / lay.F[tid * lay.ldf + tid];
+      __syncthreads(); PHASE(3);
 
-    // --- L L^T X = [Qux | Qu]: each warp takes every kWarps-th column, its
-    // lanes the rows (lane and lane + 32); the pivot entry moves by shuffle
-    {
-      float y0[kColsPerWarp], y1[kColsPerWarp];
-#pragma unroll
-      for (int t = 0; t < kColsPerWarp; ++t) {
-        const int c = warp + kWarps * t;
-        y0[t] = (c < m && lane < nu) ? X[lane * m + c] : 0.0f;
-        y1[t] = (c < m && lane + kWarp < nu) ? X[(lane + kWarp) * m + c] : 0.0f;
-      }
-      // the loads of step i + 1 are issued before step i's shuffles
-      float ri = rinv[0];
-      float l0 = (lane > 0 && lane < nu) ? F[lane * ldf] : 0.0f;
-      float l1 = lane + kWarp < nu ? F[(lane + kWarp) * ldf] : 0.0f;
-      for (int i = 0; i < nu; ++i) {  // L z = y: rows below i lose L[r][i] z_i
-        const int n1 = i + 1;
-        const float ri_n = n1 < nu ? rinv[n1] : 0.0f;
-        const float l0_n = (n1 < nu && lane > n1 && lane < nu) ? F[lane * ldf + n1] : 0.0f;
-        const float l1_n = (n1 < nu && lane + kWarp > n1 && lane + kWarp < nu)
-                               ? F[(lane + kWarp) * ldf + n1] : 0.0f;
+      // --- L L^T X = [Qux | Qu]: each warp takes every kWarps-th column, its
+      // lanes the rows (lane and lane + 32); the pivot entry moves by shuffle
+      {
+        float y0[kColsPerWarp], y1[kColsPerWarp];
 #pragma unroll
         for (int t = 0; t < kColsPerWarp; ++t) {
-          const float zi = __shfl_sync(0xffffffffu, i < kWarp ? y0[t] : y1[t], i & (kWarp - 1)) * ri;
-          if (lane == (i & (kWarp - 1))) {
-            if (i < kWarp) y0[t] = zi; else y1[t] = zi;
-          }
-          y0[t] -= l0 * zi;
-          y1[t] -= l1 * zi;
+          const int c = warp + kWarps * t;
+          y0[t] = (c < lay.m && lane < lay.nu) ? lay.X[lane * lay.m + c] : 0.0f;
+          y1[t] = (c < lay.m && lane + kWarp < lay.nu) ? lay.X[(lane + kWarp) * lay.m + c] : 0.0f;
         }
-        ri = ri_n;
-        l0 = l0_n;
-        l1 = l1_n;
-      }
-      ri = rinv[nu - 1];
-      l0 = lane < nu - 1 ? F[(nu - 1) * ldf + lane] : 0.0f;
-      l1 = lane + kWarp < nu - 1 ? F[(nu - 1) * ldf + lane + kWarp] : 0.0f;
-      for (int i = nu - 1; i >= 0; --i) {  // L^T x = z: rows above i lose L[i][r] x_i
-        const int n1 = i - 1;
-        const float ri_n = n1 >= 0 ? rinv[n1] : 0.0f;
-        const float l0_n = lane < n1 ? F[n1 * ldf + lane] : 0.0f;
-        const float l1_n = lane + kWarp < n1 ? F[n1 * ldf + lane + kWarp] : 0.0f;
+        // the loads of step i + 1 are issued before step i's shuffles
+        float ri = lay.rinv[0];
+        float l0 = (lane > 0 && lane < lay.nu) ? lay.F[lane * lay.ldf] : 0.0f;
+        float l1 = lane + kWarp < lay.nu ? lay.F[(lane + kWarp) * lay.ldf] : 0.0f;
+        for (int i = 0; i < lay.nu; ++i) {  // L z = y: rows below i lose L[r][i] z_i
+          const int n1 = i + 1;
+          const float ri_n = n1 < lay.nu ? lay.rinv[n1] : 0.0f;
+          const float l0_n =
+              (n1 < lay.nu && lane > n1 && lane < lay.nu) ? lay.F[lane * lay.ldf + n1] : 0.0f;
+          const float l1_n = (n1 < lay.nu && lane + kWarp > n1 && lane + kWarp < lay.nu)
+                                 ? lay.F[(lane + kWarp) * lay.ldf + n1] : 0.0f;
+#pragma unroll
+          for (int t = 0; t < kColsPerWarp; ++t) {
+            const float zi =
+                __shfl_sync(0xffffffffu, i < kWarp ? y0[t] : y1[t], i & (kWarp - 1)) * ri;
+            if (lane == (i & (kWarp - 1))) {
+              if (i < kWarp) y0[t] = zi; else y1[t] = zi;
+            }
+            y0[t] -= l0 * zi;
+            y1[t] -= l1 * zi;
+          }
+          ri = ri_n;
+          l0 = l0_n;
+          l1 = l1_n;
+        }
+        ri = lay.rinv[lay.nu - 1];
+        l0 = lane < lay.nu - 1 ? lay.F[(lay.nu - 1) * lay.ldf + lane] : 0.0f;
+        l1 = lane + kWarp < lay.nu - 1 ? lay.F[(lay.nu - 1) * lay.ldf + lane + kWarp] : 0.0f;
+        for (int i = lay.nu - 1; i >= 0; --i) {  // L^T x = z: rows above i lose L[i][r] x_i
+          const int n1 = i - 1;
+          const float ri_n = n1 >= 0 ? lay.rinv[n1] : 0.0f;
+          const float l0_n = lane < n1 ? lay.F[n1 * lay.ldf + lane] : 0.0f;
+          const float l1_n = lane + kWarp < n1 ? lay.F[n1 * lay.ldf + lane + kWarp] : 0.0f;
+#pragma unroll
+          for (int t = 0; t < kColsPerWarp; ++t) {
+            const float xi =
+                __shfl_sync(0xffffffffu, i < kWarp ? y0[t] : y1[t], i & (kWarp - 1)) * ri;
+            if (lane == (i & (kWarp - 1))) {
+              if (i < kWarp) y0[t] = xi; else y1[t] = xi;
+            }
+            y0[t] -= l0 * xi;
+            y1[t] -= l1 * xi;
+          }
+          ri = ri_n;
+          l0 = l0_n;
+          l1 = l1_n;
+        }
 #pragma unroll
         for (int t = 0; t < kColsPerWarp; ++t) {
-          const float xi = __shfl_sync(0xffffffffu, i < kWarp ? y0[t] : y1[t], i & (kWarp - 1)) * ri;
-          if (lane == (i & (kWarp - 1))) {
-            if (i < kWarp) y0[t] = xi; else y1[t] = xi;
-          }
-          y0[t] -= l0 * xi;
-          y1[t] -= l1 * xi;
+          const int c = warp + kWarps * t;
+          if (c < lay.m && lane < lay.nu) lay.X[lane * lay.m + c] = y0[t];
+          if (c < lay.m && lane + kWarp < lay.nu) lay.X[(lane + kWarp) * lay.m + c] = y1[t];
         }
-        ri = ri_n;
-        l0 = l0_n;
-        l1 = l1_n;
       }
-#pragma unroll
-      for (int t = 0; t < kColsPerWarp; ++t) {
-        const int c = warp + kWarps * t;
-        if (c < m && lane < nu) X[lane * m + c] = y0[t];
-        if (c < m && lane + kWarp < nu) X[(lane + kWarp) * m + c] = y1[t];
-      }
+      __syncthreads(); PHASE(4);
     }
-    __syncthreads(); PHASE(4);
 
     // --- K, kff out; M = Qux^T K into S (its symmetric part joins Qxx at the
-    // next node's load), s <- Qx + Qux^T kff ---------------------------------
-    for (int idx = tid; idx < nxu; idx += kThreads) {
-      const int i = idx / nx, j = idx - i * nx;
-      gK[node * nxu + idx] = -X[i * m + j];
-    }
-    for (int i = tid; i < nu; i += kThreads) gkff[node * nu + i] = -X[i * m + nx];
+    // next node's load), s <- Qx + Qux^T kff; on a layout carved anew (see
+    // opaque) -----------------------------------------------------------------
     {
-      const int tS = tiles(nx, nx);
-      for (int w = tid; w < tS + nx; w += kThreads) {
-        if (w < tS) {
-          int i0, j0;
-          tile_origin(w, nx, i0, j0);
-          float acc[2][4];
-          tile_tn(Qux, nx, X, m, nu, i0, j0, acc);  // Qux^T X = -Qux^T K
+      const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg);
+      for (int idx = tid; idx < lay.nxu; idx += kT) {
+        const int i = idx / lay.nx, j = idx - i * lay.nx;
+        gK[node * lay.nxu + idx] = -lay.X[i * lay.m + j];
+      }
+      for (int i = tid; i < lay.nu; i += kT) gkff[node * lay.nu + i] = -lay.X[i * lay.m + lay.nx];
+      {
+        const int tS = tiles(lay.nx, lay.nx);
+        for (int w = tid; w < tS + lay.nx; w += kT) {
+          if (w < tS) {
+            int i0, j0;
+            tile_origin(w, lay.nx, i0, j0);
+            float acc[2][4];
+            tile_tn(lay.Qux, lay.nx, lay.X, lay.m, lay.nu, i0, j0, acc);  // Qux^T X = -Qux^T K
 #pragma unroll
-          for (int u = 0; u < 2; ++u)
+            for (int u = 0; u < 2; ++u)
 #pragma unroll
-            for (int v = 0; v < 4; ++v)
-              if (i0 + u < nx && j0 + v < nx) S[(i0 + u) * nx + j0 + v] = -acc[u][v];
-        } else {
-          const int i = w - tS;
-          float acc = 0.0f;
-          for (int q = 0; q < nu; ++q) acc -= Qux[q * nx + i] * X[q * m + nx];
-          s[i] = Qx[i] + acc;
+              for (int v = 0; v < 4; ++v)
+                if (i0 + u < lay.nx && j0 + v < lay.nx)
+                  lay.S[(i0 + u) * lay.nx + j0 + v] = -acc[u][v];
+          } else {
+            const int i = w - tS;
+            float acc = 0.0f;
+            for (int q = 0; q < lay.nu; ++q)
+              acc -= lay.Qux[q * lay.nx + i] * lay.X[q * lay.m + lay.nx];
+            lay.s[i] = lay.Qx[i] + acc;
+          }
         }
       }
     }
@@ -418,37 +542,60 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 #endif
 }
 
-}  // namespace
 
-// Batch-major inputs: A (batch, N, nx, nx), B (batch, N, nx, nu), d and lx
-// (batch, N, nx), lu (batch, N, nu), lxx (batch, N, nx, nx), luu (batch, N,
-// nu, nu), lux (batch, N, nu, nx), lxx_f (batch, nx, nx), lx_f (batch, nx);
-// outputs K (batch, N, nu, nx), kff (batch, N, nu). symmetrize != 0 runs K2,
-// 0 runs K3c. `clocks` (6 int64, or NULL) is written by the diagnostic build
-// only. Launches on `stream` and returns cudaGetLastError() (0 on success),
-// or cudaErrorInvalidValue for shapes the kernel does not take.
-extern "C" int qm_riccati_bwd_f32(const float* A, const float* B, const float* d,
-                                  const float* lx, const float* lu, const float* lxx,
-                                  const float* luu, const float* lux, const float* lxx_f,
-                                  const float* lx_f, float* K, float* kff,
-                                  int batch, int N, int nx, int nu, float shift,
-                                  int symmetrize, void* stream, long long* clocks) {
-  if (batch < 0 || N < 1 || nx < 1 || nu < 1 || nx > kMaxDim || nu > kMaxDim)
+template <bool kReg>
+int launch(const float* A, const float* B, const float* d, const float* lx, const float* lu,
+           const float* lxx, const float* luu, const float* lux, const float* lxx_f,
+           const float* lx_f, float* K, float* kff, int batch, int N, int nx, int nu,
+           float shift, int symmetrize, void* stream, long long* clocks) {
+  if (batch < 0 || N < 1 || nx < 1 || nu < 1 || nx > kMaxDim || nu > (kReg ? kRegMaxNu : kMaxDim))
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
-  const size_t smem = (size_t)smem_floats(nx, nu) * sizeof(float);
-  const void* fn = symmetrize ? (const void*)riccati_bwd_kernel<true>
-                              : (const void*)riccati_bwd_kernel<false>;
+  constexpr int kT = kReg ? QM_SWEEP_REG_THREADS : kThreads;
+  const size_t smem = (size_t)smem_floats(nx, nu, kReg) * sizeof(float);
+  const void* fn = symmetrize ? (const void*)riccati_bwd_kernel<true, kReg>
+                              : (const void*)riccati_bwd_kernel<false, kReg>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   if (symmetrize)
-    riccati_bwd_kernel<true><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+    riccati_bwd_kernel<true, kReg><<<batch, kT, smem, (cudaStream_t)stream>>>(
         A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, N, nx, nu, shift, clocks);
   else
-    riccati_bwd_kernel<false><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+    riccati_bwd_kernel<false, kReg><<<batch, kT, smem, (cudaStream_t)stream>>>(
         A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, N, nx, nu, shift, clocks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Batch-major inputs: A (batch, N, nx, nx), B (batch, N, nx, nu), d and lx
+// (batch, N, nx), lu (batch, N, nu), lxx (batch, N, nx, nx), luu (batch, N,
+// nu, nu), lux (batch, N, nu, nx), lxx_f (batch, nx, nx), lx_f (batch, nx);
+// outputs K (batch, N, nu, nx), kff (batch, N, nu). symmetrize != 0 runs K2,
+// 0 runs K3c. One entry point a variant: reg takes nx <= 36 and nu <= 32,
+// smem nx, nu <= 36 (ops/riccati_fused.py:sweep_variant picks one by
+// shape). `clocks` (6 int64, or NULL) is written by the diagnostic build
+// only. Launches on `stream` and returns cudaGetLastError() (0 on success),
+// or cudaErrorInvalidValue for shapes the variant does not take.
+extern "C" int qm_riccati_bwd_reg_f32(const float* A, const float* B, const float* d,
+                                      const float* lx, const float* lu, const float* lxx,
+                                      const float* luu, const float* lux, const float* lxx_f,
+                                      const float* lx_f, float* K, float* kff, int batch, int N,
+                                      int nx, int nu, float shift, int symmetrize, void* stream,
+                                      long long* clocks) {
+  return launch<true>(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, batch, N, nx, nu,
+                      shift, symmetrize, stream, clocks);
+}
+
+extern "C" int qm_riccati_bwd_smem_f32(const float* A, const float* B, const float* d,
+                                       const float* lx, const float* lu, const float* lxx,
+                                       const float* luu, const float* lux, const float* lxx_f,
+                                       const float* lx_f, float* K, float* kff, int batch, int N,
+                                       int nx, int nu, float shift, int symmetrize, void* stream,
+                                       long long* clocks) {
+  return launch<false>(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, batch, N, nx, nu,
+                       shift, symmetrize, stream, clocks);
 }

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from .cuda_build import check_launch, load, on_cuda
+from .riccati_fused import VARIANTS as SWEEP_VARIANTS
 from .riccati_fused import check_sweep_shapes, launch_sweep, sweep_plain
 from .spd_solve import spd_solve_plain
 
@@ -215,8 +216,9 @@ def riccati_backward_ll_plain(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f):
 
 def riccati_backward_ll(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f):
     """K3c: backward Riccati sweep over batch-major data (shapes as
-    ``riccati_fused.riccati_backward_fused``). Returns (K, kff). Counted by
-    ``riccati_backward_ll.launches``."""
+    ``riccati_fused.riccati_backward_fused``). Returns (K, kff). CUDA
+    tensors launch the variant ``riccati_fused.sweep_variant`` picks, counted
+    by ``riccati_backward_ll.launches`` and ``.launches_by_variant``."""
     args = (A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f)
     check_sweep_shapes("riccati_backward_ll", *args)
     if not on_cuda("riccati_backward_ll", *args):
@@ -225,6 +227,7 @@ def riccati_backward_ll(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f):
 
 
 riccati_backward_ll.launches = 0
+riccati_backward_ll.launches_by_variant = dict.fromkeys(SWEEP_VARIANTS, 0)
 
 
 # --- K3d: forward rollout + input recovery --------------------------------------

@@ -1,17 +1,31 @@
 """K2: the whole backward Riccati sweep in one launch (port of
 ``qm_door_tpu/ops/pallas_riccati.py:riccati_backward_fused``).
 
-The CUDA kernel is ``qm_door_torch/csrc/riccati_bwd.cu``: one block per
-scenario keeps the carry (S, s) in shared memory over the N nodes and
-writes only K and kff back; the source note has the bound and the design.
-The same kernel, compiled without the input symmetrization, is K3c
+The CUDA kernel is ``qm_door_torch/csrc/riccati_bwd.cu``: one 256-thread
+block per scenario keeps the carry (S, s) in shared memory over the N nodes
+and writes only K and kff back; the source note has the bound and the
+design. The same kernel, compiled without the input symmetrization, is K3c
 (``ops/lq.py:riccati_backward_ll``), so the sweep's launch and its plain
 version live here and serve both.
 
-:func:`riccati_backward_fused` launches the kernel for CUDA tensors
+The kernel has two variants, which differ only in the Cholesky and solve of
+each node's gain, and :func:`sweep_variant` picks one from the shape alone:
+
+- ``reg`` (nu <= 32, the solver's 30/30), 128-thread blocks: one warp
+  factors Quu in registers with shuffles (lane i row i, on
+  ``csrc/chol_warp.cuh``'s register-lean routines), then solves the nx + 1
+  right-hand sides with a column a lane (a second warp for nx + 1 > 32);
+- ``smem`` (32 < nu <= 36, up to the force-tracking width), 256-thread
+  blocks: the whole block factors Quu in shared memory with one barrier a
+  pivot.
+
+:func:`riccati_backward_fused` launches the chosen variant for CUDA tensors
 (contiguous float32, nx, nu <= 36) and raises for anything it cannot take;
-for CPU tensors it runs :func:`riccati_backward_fused_plain`, the kernel's
-arithmetic (``_ric_bwd_kernel``, inputs symmetrized up front) as torch ops.
+nothing is chosen because a build or a launch failed. For CPU tensors it
+runs :func:`riccati_backward_fused_plain`, the kernel's arithmetic
+(``_ric_bwd_kernel``, inputs symmetrized up front) as torch ops. Each
+wrapper counts its launches in ``.launches`` and, by variant, in
+``.launches_by_variant``.
 """
 from __future__ import annotations
 
@@ -23,6 +37,8 @@ from .cuda_build import check_launch, load, on_cuda
 from .spd_solve import spd_solve_plain
 
 MAX_DIM = 36
+REG_MAX_NU = 32  # the reg variant holds Quu in one warp, a row a lane
+VARIANTS = ("reg", "smem")
 
 
 def _sym(M):
@@ -103,16 +119,24 @@ def check_sweep_shapes(name, A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f):
         raise ValueError(f"{name}: no nodes")
 
 
+def sweep_variant(nx: int, nu: int) -> str:
+    """The sweep variant for nx states and nu inputs: "reg" for nu <= 32,
+    "smem" for 32 < nu <= 36; ValueError above 36."""
+    if nx > MAX_DIM or nu > MAX_DIM:
+        raise ValueError(f"sweep: nx = {nx}, nu = {nu}; the kernel takes at most {MAX_DIM}")
+    return "reg" if nu <= REG_MAX_NU else "smem"
+
+
 PHASE_CLOCKS = "QM_SWEEP_PHASE_CLOCKS"  # the diagnostic build's define
 _fns: dict = {}
 
 
-def kernel_fn(defines=()):
-    """The sweep kernel's C function, from the library built with
+def kernel_fn(variant: str, defines=()):
+    """The C entry point of a sweep variant, from the library built with
     ``defines`` (``(PHASE_CLOCKS,)`` for the per-phase cycle counts)."""
-    key = tuple(defines)
+    key = (variant, tuple(defines))
     if key not in _fns:
-        fn = load("riccati_bwd", key).qm_riccati_bwd_f32
+        fn = getattr(load("riccati_bwd", tuple(defines)), f"qm_riccati_bwd_{variant}_f32")
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -120,45 +144,55 @@ def kernel_fn(defines=()):
     return _fns[key]
 
 
-def launch_sweep(wrapper, args, shift: float, symmetrize: bool):
-    """Launch the sweep kernel on CUDA tensors ``args`` (checked by the
-    caller) and count the launch on ``wrapper.launches``."""
+def launch_sweep(wrapper, args, shift: float, symmetrize: bool, variant=None):
+    """Launch the sweep variant :func:`sweep_variant` names (or ``variant``,
+    forced) on CUDA tensors ``args`` (checked by the caller) and count the
+    launch on ``wrapper.launches`` and ``wrapper.launches_by_variant``."""
     name = wrapper.__name__
     A, B = args[0], args[1]
     Bb, N, nx, nu = B.shape
     if nx > MAX_DIM or nu > MAX_DIM:
         raise ValueError(f"{name}: nx = {nx}, nu = {nu}; the kernel takes at most {MAX_DIM}")
+    if variant is None:
+        variant = sweep_variant(nx, nu)
+    elif variant not in VARIANTS:
+        raise ValueError(f"{name}: no sweep variant {variant!r}")
     K = torch.empty((Bb, N, nu, nx), dtype=A.dtype, device=A.device)
     kff = torch.empty((Bb, N, nu), dtype=A.dtype, device=A.device)
     if Bb == 0:
         return K, kff
     with torch.cuda.device(A.device):
-        err = kernel_fn()(*(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(),
-                          Bb, N, nx, nu, float(shift), int(symmetrize),
-                          torch.cuda.current_stream(A.device).cuda_stream, None)
-    check_launch(name, err)
+        err = kernel_fn(variant)(*(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(),
+                                 Bb, N, nx, nu, float(shift), int(symmetrize),
+                                 torch.cuda.current_stream(A.device).cuda_stream, None)
+    check_launch(name, err, f" of nx = {nx}, nu = {nu} ({variant})")
     wrapper.launches += 1
+    wrapper.launches_by_variant[variant] += 1
     return K, kff
 
 
-def riccati_backward_fused(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: float = 0.0):
+def riccati_backward_fused(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: float = 0.0,
+                           _variant=None):
     """Full backward Riccati sweep in one kernel (K2).
 
     Batch-major inputs: A (Bb, N, nx, nx), B (Bb, N, nx, nu), d/lx (Bb, N, nx),
     lu (Bb, N, nu), lxx (Bb, N, nx, nx), luu (Bb, N, nu, nu),
     lux (Bb, N, nu, nx), lxx_f (Bb, nx, nx), lx_f (Bb, nx). Returns
-    (K (Bb, N, nu, nx), kff (Bb, N, nu)). CUDA tensors launch the kernel
-    (counted by ``riccati_backward_fused.launches``); CPU tensors run
-    :func:`riccati_backward_fused_plain`.
+    (K (Bb, N, nu, nx), kff (Bb, N, nu)). CUDA tensors launch the variant
+    :func:`sweep_variant` picks (counted by ``riccati_backward_fused.launches``
+    and ``.launches_by_variant``); CPU tensors run
+    :func:`riccati_backward_fused_plain`. ``_variant`` forces a variant (to
+    time one beside the other on the card); the solver never passes it.
     """
     args = (A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f)
     check_sweep_shapes("riccati_backward_fused", *args)
     if not on_cuda("riccati_backward_fused", *args):
         return riccati_backward_fused_plain(*args, shift=shift)
-    return launch_sweep(riccati_backward_fused, args, shift, symmetrize=True)
+    return launch_sweep(riccati_backward_fused, args, shift, symmetrize=True, variant=_variant)
 
 
 riccati_backward_fused.launches = 0
+riccati_backward_fused.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def riccati_backward_fused_lq(plq, shift: float = 0.0):
