@@ -70,10 +70,6 @@
 
 #include "chol_warp.cuh"
 
-// Diagnostic build (-DQM_SWEEP_PHASE_CLOCKS, chip_smoke.py phase (d)): each
-// thread sums the clock64() cycles of the six phases of a node (load, SA/SB,
-// Q terms, Cholesky, substitutions, S update); block 0's thread 0 writes its
-// sums to `clocks`. The normal build compiles PHASE to nothing.
 // The reg variant's block shape: threads a block and the blocks an SM it is
 // compiled for, which set its registers a thread (ptxas: 168 at 128 x 3,
 // 128 at 128 x 4, 96 at 192 x 3, 80 at 224 or 256 x 3). 128 x 3 is the
@@ -86,6 +82,20 @@
 #define QM_SWEEP_REG_BLOCKS 3
 #endif
 
+// The reg variant's node loads: node k-1's data is copied with cp.async
+// into a second buffer set while node k computes. The measuring build
+// -DQM_SWEEP_SYNC_LOADS loads each node at its start instead, as the smem
+// variant does (sweep_launch_shapes.py times the two).
+#ifdef QM_SWEEP_SYNC_LOADS
+constexpr bool kRegAsyncLoads = false;
+#else
+constexpr bool kRegAsyncLoads = true;
+#endif
+
+// Diagnostic build (-DQM_SWEEP_PHASE_CLOCKS, chip_smoke.py phase (d)): each
+// thread sums the clock64() cycles of the six phases of a node (load, SA/SB,
+// Q terms, Cholesky, substitutions, S update); block 0's thread 0 writes its
+// sums to `clocks`. The normal build compiles PHASE to nothing.
 #ifdef QM_SWEEP_PHASE_CLOCKS
 #define PHASE(ph)                                \
   {                                              \
@@ -144,59 +154,91 @@ __device__ __forceinline__ void tile_tn(const float* X, int ldx, const float* Y,
   }
 }
 
-// The shared buffers of one block (smem_floats() floats). The reg variant
-// keeps L twice (sLt by columns, sL by rows, 16-byte aligned) in front of
-// the buffers both variants share.
+// The shared buffers of one block (smem_floats() floats): the reg
+// variant's L, twice (sLt by columns, sL by rows, 16-byte aligned); one set
+// of node buffers, or two when the loads run a node ahead (`sets`, node k
+// in set k & 1); then the buffers every node shares.
 struct Layout {
   int nx, nu, nxx, nxu, nuu;
   int ldf;  // F's odd row stride: lanes walking a column hit distinct banks
   int m;    // right-hand sides [Qux | Qu]
   float *sLt, *sL;  // reg: L by columns and by rows
-  float *S;         // nx x nx carry
+  // node buffers, of the set `set`
   float *A, *Bm;    // nx x nx, nx x nu
   float *lxx;       // nx x nx
+  float *luu;       // nu x nu
+  float *Qux;       // nu x nx (lux, then Qux in place)
+  float *d, *Qx;    // nx, nx (lx, then Qx in place)
+  float *lu;        // nu
+  // shared by every node
+  float *S;         // nx x nx carry
   float *SA, *Qxx;  // nx x nx
   float *SB;        // nx x nu
-  float *Qux;       // nu x nx (lux, then Qux in place)
-  float *luu;       // nu x nu
   float *F;         // nu x ldf: Quu, then (smem) L in its lower triangle
   float *X;         // nu x m: [Qux | Qu], then the solution
-  float *s, *d;     // nx carry, nx
-  float *Qx, *Sd;   // nx (lx, then Qx in place), nx
+  float *s, *Sd;    // nx carry, nx
   float *invd;      // smem: nu pivots' rsqrt
-  float *lu;        // nu
   float *rinv;      // smem: nu of 1 / L_ii
 
-  __device__ __forceinline__ Layout(float* sm, int nx_, int nu_, bool reg)
+  __host__ __device__ static int set_floats(int nx, int nu) {
+    return 2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu;
+  }
+  __host__ __device__ static int shared_floats(int nx, int nu) {
+    return 3 * nx * nx + nx * nu + nu * (nu | 1) + nu * (nx + 1) + 2 * nx + 2 * nu;
+  }
+
+  __device__ __forceinline__ Layout(float* sm, int nx_, int nu_, bool reg, int sets, int set)
       : nx(nx_), nu(nu_), nxx(nx_ * nx_), nxu(nx_ * nu_), nuu(nu_ * nu_), ldf(nu_ | 1),
         m(nx_ + 1) {
     sLt = sm;
     sL = sLt + kNP * kNP;
-    S = sm + (reg ? chol_warp::factor_floats<kNP>() : 0);
-    A = S + nxx;
+    float* base = sm + (reg ? chol_warp::factor_floats<kNP>() : 0);
+    A = base + set * set_floats(nx, nu);
     Bm = A + nxx;
     lxx = Bm + nxu;
-    SA = lxx + nxx;
+    luu = lxx + nxx;
+    Qux = luu + nuu;
+    d = Qux + nxu;
+    Qx = d + nx;
+    lu = Qx + nx;
+    S = base + sets * set_floats(nx, nu);
+    SA = S + nxx;
     Qxx = SA + nxx;
     SB = Qxx + nxx;
-    Qux = SB + nxu;
-    luu = Qux + nxu;
-    F = luu + nuu;
+    F = SB + nxu;
     X = F + nu * ldf;
     s = X + nu * m;
-    d = s + nx;
-    Qx = d + nx;
-    Sd = Qx + nx;
+    Sd = s + nx;
     invd = Sd + nx;
-    lu = invd + nu;
-    rinv = lu + nu;
+    rinv = invd + nu;
   }
 };
 
-__host__ __device__ inline int smem_floats(int nx, int nu, bool reg) {
-  const int nxx = nx * nx, nxu = nx * nu;
-  return (reg ? chol_warp::factor_floats<kNP>() : 0) + 5 * nxx + 3 * nxu + nu * nu +
-         nu * (nu | 1) + nu * (nx + 1) + 4 * nx + 3 * nu + kSlack;
+__host__ __device__ inline int smem_floats(int nx, int nu, bool reg, int sets) {
+  return (reg ? chol_warp::factor_floats<kNP>() : 0) + sets * Layout::set_floats(nx, nu) +
+         Layout::shared_floats(nx, nu) + kSlack;
+}
+
+// The whole block copies node `node`'s data into the node buffers of `at`
+// with 4-byte cp.async (coalesced; any alignment) and commits the group.
+template <int kT>
+__device__ __forceinline__ void prefetch_node(const Layout& at, const float* gA, const float* gB,
+                                              const float* gd, const float* glx,
+                                              const float* glu, const float* glxx,
+                                              const float* gluu, const float* glux,
+                                              size_t node, int tid) {
+  const auto copy = [tid](float* dst, const float* src, int count) {
+    for (int i = tid; i < count; i += kT) chol_warp::cp_async4(dst + i, src + i);
+  };
+  copy(at.A, gA + node * at.nxx, at.nxx);
+  copy(at.lxx, glxx + node * at.nxx, at.nxx);
+  copy(at.Bm, gB + node * at.nxu, at.nxu);
+  copy(at.Qux, glux + node * at.nxu, at.nxu);
+  copy(at.luu, gluu + node * at.nuu, at.nuu);
+  copy(at.d, gd + node * at.nx, at.nx);
+  copy(at.Qx, glx + node * at.nx, at.nx);
+  copy(at.lu, glu + node * at.nu, at.nu);
+  chol_warp::cp_async_commit();
 }
 
 // v, which the compiler must treat as unknown in the reg variant. Each node
@@ -223,6 +265,8 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
                    float* __restrict__ gK, float* __restrict__ gkff,
                    int N, int nx_in, int nu_in, float shift, long long* clocks) {
   constexpr int kT = kReg ? QM_SWEEP_REG_THREADS : kThreads;
+  constexpr bool kAsync = kReg && kRegAsyncLoads;
+  constexpr int kSets = kAsync ? 2 : 1;
   extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -233,20 +277,24 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 #endif
 
   {
-    const Layout lay(sm, nx_in, nu_in, kReg);
+    const Layout lay(sm, nx_in, nu_in, kReg, kSets, (N - 1) & (kSets - 1));
     const float* Sf = glxx_f + (size_t)b * lay.nxx;
     for (int idx = tid; idx < lay.nxx; idx += kT) {
       const int i = idx / lay.nx, j = idx - i * lay.nx;
       lay.S[idx] = kSym ? 0.5f * (Sf[idx] + Sf[j * lay.nx + i]) : Sf[idx];
     }
     for (int i = tid; i < lay.nx; i += kT) lay.s[i] = glx_f[(size_t)b * lay.nx + i];
+    if constexpr (kAsync)
+      prefetch_node<kT>(lay, gA, gB, gd, glx, glu, glxx, gluu, glux, (size_t)b * N + N - 1, tid);
   }
 
   for (int k = N - 1; k >= 0; --k) {
     const size_t node = (size_t)b * N + k;
-    const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg);
+    const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg, kSets, k & (kSets - 1));
     // --- the previous node's carry: S <- Qxx + 1/2 (M + M^T), M = Qux^T K in
-    // S; and this node's data, coalesced, into shared memory ----------------
+    // S; and this node's data in shared memory: waited for, with the next
+    // node's copies set off into the other set (reg), or loaded coalesced
+    // (smem, and the reg variant's -DQM_SWEEP_SYNC_LOADS) -------------------
     if (k < N - 1) {
       for (int idx = tid; idx < lay.nxx; idx += kT) {
         const int i = idx / lay.nx, j = idx - i * lay.nx;
@@ -256,21 +304,31 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
         lay.S[j * lay.nx + i] = lay.Qxx[j * lay.nx + i] + h;
       }
     }
-    for (int idx = tid; idx < lay.nxx; idx += kT) {
-      lay.A[idx] = gA[node * lay.nxx + idx];
-      lay.lxx[idx] = glxx[node * lay.nxx + idx];
+    if constexpr (kAsync) {
+      chol_warp::cp_async_wait<0>();  // this thread's copies of node k
+      __syncthreads();                 // everyone's; set (k - 1) & 1 is free
+      if (k > 0) {
+        const Layout next(sm, lay.nx, lay.nu, true, kSets, (k - 1) & 1);
+        prefetch_node<kT>(next, gA, gB, gd, glx, glu, glxx, gluu, glux, node - 1, tid);
+      }
+    } else {
+      for (int idx = tid; idx < lay.nxx; idx += kT) {
+        lay.A[idx] = gA[node * lay.nxx + idx];
+        lay.lxx[idx] = glxx[node * lay.nxx + idx];
+      }
+      for (int idx = tid; idx < lay.nxu; idx += kT) {
+        lay.Bm[idx] = gB[node * lay.nxu + idx];
+        lay.Qux[idx] = glux[node * lay.nxu + idx];
+      }
+      for (int idx = tid; idx < lay.nuu; idx += kT) lay.luu[idx] = gluu[node * lay.nuu + idx];
+      for (int i = tid; i < lay.nx; i += kT) {
+        lay.d[i] = gd[node * lay.nx + i];
+        lay.Qx[i] = glx[node * lay.nx + i];
+      }
+      for (int i = tid; i < lay.nu; i += kT) lay.lu[i] = glu[node * lay.nu + i];
+      __syncthreads();
     }
-    for (int idx = tid; idx < lay.nxu; idx += kT) {
-      lay.Bm[idx] = gB[node * lay.nxu + idx];
-      lay.Qux[idx] = glux[node * lay.nxu + idx];
-    }
-    for (int idx = tid; idx < lay.nuu; idx += kT) lay.luu[idx] = gluu[node * lay.nuu + idx];
-    for (int i = tid; i < lay.nx; i += kT) {
-      lay.d[i] = gd[node * lay.nx + i];
-      lay.Qx[i] = glx[node * lay.nx + i];
-    }
-    for (int i = tid; i < lay.nu; i += kT) lay.lu[i] = glu[node * lay.nu + i];
-    __syncthreads(); PHASE(0);
+    PHASE(0);
 
     // --- SA = S^T A, SB = S^T B (2 x 4 tiles), Sd = S^T d + s ----------------
     {
@@ -504,7 +562,8 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
     // next node's load), s <- Qx + Qux^T kff; on a layout carved anew (see
     // opaque) -----------------------------------------------------------------
     {
-      const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg);
+      const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg, kSets,
+                       k & (kSets - 1));
       for (int idx = tid; idx < lay.nxu; idx += kT) {
         const int i = idx / lay.nx, j = idx - i * lay.nx;
         gK[node * lay.nxu + idx] = -lay.X[i * lay.m + j];
@@ -552,7 +611,8 @@ int launch(const float* A, const float* B, const float* d, const float* lx, cons
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   constexpr int kT = kReg ? QM_SWEEP_REG_THREADS : kThreads;
-  const size_t smem = (size_t)smem_floats(nx, nu, kReg) * sizeof(float);
+  const int sets = kReg && kRegAsyncLoads ? 2 : 1;
+  const size_t smem = (size_t)smem_floats(nx, nu, kReg, sets) * sizeof(float);
   const void* fn = symmetrize ? (const void*)riccati_bwd_kernel<true, kReg>
                               : (const void*)riccati_bwd_kernel<false, kReg>;
   if (smem > 48 * 1024) {

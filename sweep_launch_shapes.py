@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Measure the block shapes of the backward sweep's reg variant (K2, K3c) on
-one NVIDIA GPU.
+"""Measure the launch shapes and the node loads of the backward sweep's reg
+variant (K2, K3c) on one NVIDIA GPU.
 
     python3 sweep_launch_shapes.py
 
-The reg variant of qm_door_torch/csrc/riccati_bwd.cu fixes its block at
-build time (-DQM_SWEEP_REG_THREADS, -DQM_SWEEP_REG_BLOCKS: threads a block
-and the blocks an SM that __launch_bounds__ asks for, which set the
-registers a thread). This script builds the source with each shape (one
-nvcc each, all at once), reads each build's registers and spill stores from
+The reg variant of qm_door_torch/csrc/riccati_bwd.cu fixes two choices at
+build time: its block (-DQM_SWEEP_REG_THREADS, -DQM_SWEEP_REG_BLOCKS:
+threads a block and the blocks an SM that __launch_bounds__ asks for, which
+set the registers a thread) and its node loads (cp.async a node ahead into
+a second buffer set, or, with -DQM_SWEEP_SYNC_LOADS, each node's data
+loaded at its start). This script builds the source with each alternative
+(one nvcc each, all at once), reads each build's registers and spill stores from
 ptxas, holds each build's K2 and K3c to SWEEP_REL_TOL of the f64 plain
 sweep, and times them with the smem variant (the PR 2 kernel) in chained
 calls between CUDA events, in turns (A B C ... C B A), at the solver's
@@ -27,8 +29,9 @@ import numpy as np
 from chip_smoke import (SWEEP_REL_TOL, card_line, cuda_ms, kernel_spills, log, rel_err,
                         sweep_data, sweep_instance)
 
-NORMAL = ()  # 128 threads, 3 blocks an SM
-SHAPES = {"128x3": NORMAL, "128x4": ("QM_SWEEP_REG_THREADS=128", "QM_SWEEP_REG_BLOCKS=4"),
+NORMAL = ()  # 128 threads, 3 blocks an SM, loads a node ahead
+SHAPES = {"128x3": NORMAL, "128x3_sync_loads": ("QM_SWEEP_SYNC_LOADS",),
+          "128x4": ("QM_SWEEP_REG_THREADS=128", "QM_SWEEP_REG_BLOCKS=4"),
           "192x3": ("QM_SWEEP_REG_THREADS=192", "QM_SWEEP_REG_BLOCKS=3"),
           "224x3": ("QM_SWEEP_REG_THREADS=224", "QM_SWEEP_REG_BLOCKS=3"),
           "256x3": ("QM_SWEEP_REG_THREADS=256", "QM_SWEEP_REG_BLOCKS=3")}
