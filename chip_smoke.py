@@ -469,7 +469,8 @@ def drive(dev, backend, tag):
         elapsed = time.time() - t0
         launches = read_launches()
         k1_variants = dict(spd_solve.launches_by_variant)
-        sweep_variants = {kid: dict(w.launches_by_variant) for kid, w in sweep_wrappers().items()}
+        sweep_variants = {kid: dict(w.launches_by_variant)
+                          for kid, w in sweep_wrappers().items()}
     finally:
         batched_sqp.evaluate_trajectory = evaluate
     steps = WARM_STEPS + 1
@@ -676,26 +677,20 @@ def sweep_data(shape):
 
 
 def sweep_call(kid, args, shift=0.0, variant=None):
-    """One launch of K2 or K3c on CUDA tensors ``args``: the variant
-    sweep_variant names, or ``variant`` forced. K3c's wrapper takes no shift
-    (the TPU kernel has none), so a shift, or a forced variant, enters the
-    kernel through the launch both wrappers share, counted on K3c's."""
-    from qm_door_torch.ops import lq as tl
+    """One launch of K2 or K3c on CUDA tensors ``args``: through its wrapper,
+    or, with ``variant`` forced or a shift for K3c (whose wrapper takes none,
+    as the TPU kernel), through the launch both wrappers share, counted on
+    the wrapper's."""
     from qm_door_torch.ops import riccati_fused as rf
 
-    if kid == "K2":
-        return rf.riccati_backward_fused(*args, shift=shift, _variant=variant)
-    if shift == 0.0 and variant is None:
-        return tl.riccati_backward_ll(*args)
-    return rf.launch_sweep(tl.riccati_backward_ll, args, shift, symmetrize=False,
-                           variant=variant)
+    wrapper = sweep_wrappers()[kid]
+    if variant is None and (kid == "K2" or shift == 0.0):
+        return wrapper(*args, shift=shift) if kid == "K2" else wrapper(*args)
+    return rf.launch_sweep(wrapper, args, shift, symmetrize=kid == "K2", variant=variant)
 
 
 def sweep_wrappers():
-    from qm_door_torch.ops import lq as tl
-    from qm_door_torch.ops import riccati_fused as rf
-
-    return {"K2": rf.riccati_backward_fused, "K3c": tl.riccati_backward_ll}
+    return {kid: launch_counters()[kid] for kid in ("K2", "K3c")}
 
 
 def sweep_run(kid, args, ref, label, shift=0.0, variant=None):
@@ -722,7 +717,7 @@ def sweep_run(kid, args, ref, label, shift=0.0, variant=None):
     return outs, rel, want
 
 
-def check_sweep_shapes(dev):
+def check_sweep_at_shapes(dev):
     """(d) K2 and K3c off the path's shape: each of SWEEP_SHAPES with and
     without a shift, against sweep_plain in f64, through the variant
     sweep_variant names."""
@@ -841,7 +836,7 @@ def phase_new_kernels(dev, main):
         "K3c", "riccati_backward_ll", tl.riccati_backward_ll, tl.riccati_backward_ll_plain,
         bwd_args, ref, SWEEP_REL_TOL, nbytes, flops)
     sweep_turns(rows["K3c"], bwd_args, ref, False)
-    check_sweep_shapes(dev)
+    check_sweep_at_shapes(dev)
     fwd_args = [A_bar, B_bar, d_bar, K, kff, p, P, Px_v, fm, c(x_batch - X[:, 0])]
     floats, fl = NODE_COST["K3d"]
     rows["K3d"], _ = kernel_row(
@@ -946,7 +941,8 @@ def phase_backends(dev, main):
         log("[e] " + json.dumps(result))
         phase_cross_precision(dev, backend, "e")
         launches.update({k: v for k, v in run["launches"].items() if v})
-        by_variant.update({k: v for k, v in run["sweep_variants"].items() if run["launches"][k]})
+        by_variant.update({kid: counts for kid, counts in run["sweep_variants"].items()
+                           if run["launches"][kid]})
     return launches, by_variant
 
 

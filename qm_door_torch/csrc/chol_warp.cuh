@@ -23,9 +23,10 @@
 // Used by spd_solve.cu (K1). Pure f32 on the CUDA cores: the solver chain
 // keeps true f32 (no tensor cores, no TF32).
 //
-// Register-lean forms, for a caller whose other phases cap its registers
-// (riccati_bwd.cu, K2/K3c: 256-thread blocks at 3 blocks an SM, 80
-// registers a thread, where factor() and solve() as they are would spill):
+// Register-lean forms, for a caller whose block shape caps its registers
+// (riccati_bwd.cu's reg variant, K2/K3c: one warp of a 128-thread block
+// factors and solves while the block's other phases share the budget;
+// they hold the 32-float row or column and nothing else of NP floats):
 //   load_rows_ld()       load_rows() with a row stride of its own (the
 //                        sweep's odd stride) and no shift.
 //   factor_lean()        factor()'s arithmetic, but each shuffled A_jk goes

@@ -30,8 +30,8 @@
 // Design: one block per scenario, 3 blocks an SM, so the 384 scenarios fit
 // one wave. The carry S, s and every node's data live in shared memory for
 // the whole sweep; nothing but K and kff goes back to HBM, once. Each node's
-// data is loaded coalesced into shared memory; every product is a sum over
-// the leading index (X^T Y), computed in 2 x 4 register tiles spread over
+// data reaches shared memory coalesced; every product is a sum over the
+// leading index (X^T Y), computed in 2 x 4 register tiles spread over
 // the block's threads (shared-memory bandwidth is what the products are
 // bound by), and the symmetric forms as 1/2 (M + M^T) of one product M,
 // which keeps them exactly symmetric. K2 symmetrizes lxx, luu and lxx_f on
@@ -48,20 +48,25 @@
 //   nx + 1 right-hand sides in registers, reading L as warp-uniform float4
 //   chunks. nx + 1 > 32 (nx up to 36) takes a second warp for columns 32..,
 //   behind a 64-thread named barrier. L's two copies add 8.5 KB of shared
-//   memory a block. Registers: the factor is what needs them (ptxas
-//   schedules each pivot's shuffles ahead of the last pivot's updates);
-//   128 threads at 3 blocks an SM give 168 and no spills, where 256 or 224
-//   threads (80 registers) and 192 (96) spill. The node's Layout is carved
-//   anew from opaque dims before the factor and after the solve (see
-//   opaque()), so nothing derived from the dims rides over them in a
-//   register.
+//   memory a block. Registers: the factor is what needs them; 128 threads
+//   at 3 blocks an SM give 168 and no spills, where 256 or 224 threads (80
+//   registers) and 192 (96) spill. The node's Layout is carved
+//   anew from opaque dims at the node's start and after the solve (see
+//   opaque()), so nothing derived from the dims rides over the factor in a
+//   register. Node loads: two sets of node buffers (A, B, d, lx, lu, lxx,
+//   luu, lux; lux and lx turn into Qux and Qx in place, so each set has its
+//   own), node k in set k & 1. Once node k's data has landed, the whole
+//   block sets off node k-1's copies (4-byte cp.async, coalesced, any
+//   alignment) into the other set, and node k-1 waits for them at its
+//   start: the loads leave the chain but for that wait. 67.8 KB of shared
+//   memory a block at 30/30 (3 blocks an SM fit in 227 KB).
 // - smem (32 < nu <= 36, up to the force-tracking width), 256 threads (8
 //   warps, 80 registers): the block-parallel Cholesky on the lower triangle
 //   of Quu in shared memory (odd row stride; warps over rows, lanes over
 //   columns of the trailing update), one __syncthreads per pivot, column k
 //   scaled one step late; then two substitutions with each warp on every
 //   8th column and its lanes on the rows (lane and lane + 32), each solved
-//   entry passed on by a shuffle.
+//   entry passed on by a shuffle. Each node's data is loaded at its start.
 // Both multiply by 1 / L_ii instead of dividing. Generic nx <= 36; no batch
 // padding, no lanes-last layout. f32 FMAs on the CUDA cores, no tensor
 // cores: the chain needs true f32.

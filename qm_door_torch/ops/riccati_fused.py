@@ -15,6 +15,8 @@ each node's gain, and :func:`sweep_variant` picks one from the shape alone:
   factors Quu in registers with shuffles (lane i row i, on
   ``csrc/chol_warp.cuh``'s register-lean routines), then solves the nx + 1
   right-hand sides with a column a lane (a second warp for nx + 1 > 32);
+  the next node's data is copied (cp.async) into a second set of buffers
+  while this node computes;
 - ``smem`` (32 < nu <= 36, up to the force-tracking width), 256-thread
   blocks: the whole block factors Quu in shared memory with one barrier a
   pivot.
@@ -145,9 +147,11 @@ def kernel_fn(variant: str, defines=()):
 
 
 def launch_sweep(wrapper, args, shift: float, symmetrize: bool, variant=None):
-    """Launch the sweep variant :func:`sweep_variant` names (or ``variant``,
-    forced) on CUDA tensors ``args`` (checked by the caller) and count the
-    launch on ``wrapper.launches`` and ``wrapper.launches_by_variant``."""
+    """Launch the sweep variant :func:`sweep_variant` names on CUDA tensors
+    ``args`` (checked by the caller) and count the launch on
+    ``wrapper.launches`` and ``wrapper.launches_by_variant``. ``variant``
+    forces one (to time it beside the other on the card); the wrappers never
+    pass it."""
     name = wrapper.__name__
     A, B = args[0], args[1]
     Bb, N, nx, nu = B.shape
@@ -171,8 +175,7 @@ def launch_sweep(wrapper, args, shift: float, symmetrize: bool, variant=None):
     return K, kff
 
 
-def riccati_backward_fused(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: float = 0.0,
-                           _variant=None):
+def riccati_backward_fused(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: float = 0.0):
     """Full backward Riccati sweep in one kernel (K2).
 
     Batch-major inputs: A (Bb, N, nx, nx), B (Bb, N, nx, nu), d/lx (Bb, N, nx),
@@ -181,14 +184,13 @@ def riccati_backward_fused(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, shift: f
     (K (Bb, N, nu, nx), kff (Bb, N, nu)). CUDA tensors launch the variant
     :func:`sweep_variant` picks (counted by ``riccati_backward_fused.launches``
     and ``.launches_by_variant``); CPU tensors run
-    :func:`riccati_backward_fused_plain`. ``_variant`` forces a variant (to
-    time one beside the other on the card); the solver never passes it.
+    :func:`riccati_backward_fused_plain`.
     """
     args = (A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f)
     check_sweep_shapes("riccati_backward_fused", *args)
     if not on_cuda("riccati_backward_fused", *args):
         return riccati_backward_fused_plain(*args, shift=shift)
-    return launch_sweep(riccati_backward_fused, args, shift, symmetrize=True, variant=_variant)
+    return launch_sweep(riccati_backward_fused, args, shift, symmetrize=True)
 
 
 riccati_backward_fused.launches = 0

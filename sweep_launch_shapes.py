@@ -12,9 +12,9 @@ a second buffer set, or, with -DQM_SWEEP_SYNC_LOADS, each node's data
 loaded at its start). This script builds the source with each alternative
 (one nvcc each, all at once), reads each build's registers and spill stores from
 ptxas, holds each build's K2 and K3c to SWEEP_REL_TOL of the f64 plain
-sweep, and times them with the smem variant (the PR 2 kernel) in chained
-calls between CUDA events, in turns (A B C ... C B A), at the solver's
-shape: 384 scenarios x 67 nodes, nx = nu = 30, f32, on random data of the
+sweep, and times them with the smem variant (the block-parallel kernel) in
+chained calls between CUDA events, in turns (A B C ... C B A), at the
+solver's shape: 384 scenarios x 67 nodes, nx = nu = 30, f32, on random data of the
 JAX tests' recipe with A = 0.95 I + noise (so the 67-node carry stays
 bounded). Prints one JSON line per measurement, the card's name and power
 limit, and a last line with every result. Exits non-zero without a CUDA
