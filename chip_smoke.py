@@ -619,6 +619,103 @@ NODE_COST = {  # (floats moved, flops) per node, nx = nu = 30, 18 joint and 12 f
 }
 
 
+# K3a/K3b's phases, as csrc/lq_project.cu's diagnostic build (-DQM_LQ_PHASE_CLOCKS)
+# counts them, in the normal build ("new") and the PR 2 kernels ("scalar")
+LQ_PHASES = {
+    ("K3a", "scalar"): ("load", "gram", "factor", "substitutions", "p_P_Px", "A_B_d_bar_stores"),
+    ("K3a", "new"): ("load", "gram", "factor", "substitutions", "p_P_Px", "A_B_d_bar_stores"),
+    ("K3b", "scalar"): ("load", "first_products", "lx_lu", "lxx", "luu", "lux"),
+    ("K3b", "new"): ("load", "first_products", "second_products", "stores"),
+}
+# the fm/act patterns of the projection's branches: every foot in stance,
+# every foot in swing, a random mix, and a random mix with act rows switched
+# off beyond the swing rows (a constraint row dropped, its Gv row zero)
+PROJECTION_PATTERNS = ("stance", "swing", "mix", "act_off")
+
+
+def projection_data(Bb, N, pattern, seed):
+    """float64 numpy inputs of K3a (A, B, d, g0, Gx, Gv, F_bar, act, fm) and
+    of K3b (lx, lu, lxx, luu, lux; K3b's p, P, Px_v come from K3a) on the
+    recipe of tests/test_pallas_lq.py:_random_lq (the JAX tests' own):
+    contact flags by `pattern`, act the velocity-row mask (stance (1,1,1),
+    swing (0,0,1) a foot), fm the flags thrice; g0, Gx, Gv masked by act."""
+    rng = np.random.default_rng(seed)
+    shape = (Bb, N)
+    if pattern in ("stance", "swing"):
+        flags = np.full(shape + (4,), 1.0 if pattern == "stance" else 0.0)
+    else:
+        flags = rng.integers(0, 2, size=shape + (4,)).astype(np.float64)
+    act = np.stack([flags, flags, np.ones_like(flags)], axis=-1).reshape(shape + (12,))
+    if pattern == "act_off":
+        act = act * rng.integers(0, 2, size=shape + (12,))
+    fm = np.repeat(flags, 3, axis=-1)
+
+    def spd(n):
+        W = rng.normal(size=shape + (n, n))
+        return W @ np.swapaxes(W, -1, -2) + 0.5 * np.eye(n)
+
+    geom = [np.eye(30) + 0.05 * rng.normal(size=shape + (30, 30)),
+            0.1 * rng.normal(size=shape + (30, 30)), 0.01 * rng.normal(size=shape + (30,)),
+            rng.normal(size=shape + (12,)) * act,
+            rng.normal(size=shape + (12, 30)) * act[..., None],
+            rng.normal(size=shape + (12, 18)) * act[..., None],
+            rng.normal(size=shape + (12,)), act, fm]
+    cost = [rng.normal(size=shape + (30,)), rng.normal(size=shape + (30,)), spd(30), spd(30),
+            0.1 * rng.normal(size=shape + (30, 30))]
+    return geom, cost
+
+
+def lq_project_call(kid, defines, args, shift=0.0, clocks=None):
+    """A call that launches K3a or K3b from the lq_project build with
+    `defines` on CUDA tensors `args` (its wrapper's inputs) into outputs
+    allocated once, and returns them; the wrapper's launch counter is not
+    touched. `clocks` (7 int64 on the card) is for the phase-clock build."""
+    import torch
+
+    from qm_door_torch.ops import lq as tl
+    from qm_door_torch.ops.cuda_build import check_launch
+
+    geom = kid == "K3a"
+    lead = (args[0] if geom else args[2]).shape[:-2]
+    outs = tuple(torch.empty(*lead, *tail, device=args[0].device)
+                 for tail in (tl.GEOM_OUT if geom else tl.COST_OUT))
+    nodes = int(np.prod(lead))
+    kernel = "geom" if geom else "cost"
+    fn = tl.project_fn(kernel, defines)
+    blocks = tl.launch_grid(kernel, nodes, args[0].device)
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    ptrs = lambda ts: [t.data_ptr() for t in ts]  # noqa: E731
+    clk = None if clocks is None else clocks.data_ptr()
+
+    def call():
+        if geom:
+            err = fn(*ptrs(args), *ptrs(outs), nodes, blocks, stream, clk)
+        else:
+            err = fn(*ptrs(args), float(shift), *ptrs(outs), nodes, blocks, stream, clk)
+        check_launch(f"{kid} build {defines}", err)
+        return outs
+
+    return call
+
+
+def lq_phases(kid, defines, args, shift=0.0):
+    """clock64() cycles a node of each phase of K3a or K3b in block 0's
+    thread 0, from the phase-clock build of the build `defines`."""
+    import torch
+
+    from qm_door_torch.ops.lq import PHASE_CLOCKS, SCALAR_PRODUCTS
+
+    clocks = torch.zeros(7, dtype=torch.int64, device=args[0].device)
+    lq_project_call(kid, tuple(defines) + (PHASE_CLOCKS,), args, shift, clocks)()
+    torch.cuda.synchronize()
+    counts = clocks.tolist()
+    names = LQ_PHASES[kid, "scalar" if SCALAR_PRODUCTS in defines else "new"]
+    cycles = {name: c / counts[6] for name, c in zip(names, counts)}
+    total = sum(cycles.values())
+    return {"cycles": cycles, "total": total, "nodes_block0": counts[6],
+            "share": {name: c / total for name, c in cycles.items()}}
+
+
 SWEEP_PHASES = ("load", "SA_SB_Sd", "Q_terms", "cholesky", "substitutions", "S_update")
 
 

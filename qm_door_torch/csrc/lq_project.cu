@@ -30,6 +30,34 @@
 // kernel reads B and Gv as they are.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "chol_warp.cuh"
+
+// Diagnostic build (-DQM_LQ_PHASE_CLOCKS, chip_smoke.py phase (d) and
+// lq_project_turns.py): each thread sums the clock64() cycles of the six
+// phases of its nodes; block 0's thread 0 writes its sums and the number of
+// nodes it ran to `clocks`. The normal build compiles PHASE to nothing.
+#ifdef QM_LQ_PHASE_CLOCKS
+#define PHASE(ph)                                \
+  {                                              \
+    const long long t_now = clock64();           \
+    phase_cycles[ph] += t_now - phase_start;     \
+    phase_start = t_now;                         \
+  }
+#define PHASE_CLOCKS_START                       \
+  long long phase_cycles[6] = {0, 0, 0, 0, 0, 0}; \
+  long long phase_start = clock64();
+#define PHASE_CLOCKS_STORE(nodes_done)                                     \
+  if (clocks != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {          \
+    for (int q = 0; q < 6; ++q) clocks[q] = phase_cycles[q];               \
+    clocks[6] = (nodes_done);                                              \
+  }
+#else
+#define PHASE(ph)
+#define PHASE_CLOCKS_START
+#define PHASE_CLOCKS_STORE(nodes_done)
+#endif
 
 namespace {
 
@@ -48,7 +76,8 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
                     const float* __restrict__ gFb, const float* __restrict__ gact,
                     const float* __restrict__ gfm, float* __restrict__ oA,
                     float* __restrict__ oB, float* __restrict__ od, float* __restrict__ op,
-                    float* __restrict__ oP, float* __restrict__ oPx) {
+                    float* __restrict__ oP, float* __restrict__ oPx,
+                    long long* clocks) {
   __shared__ float Bm[NX * NU];
   __shared__ float Gv[NC * NV];
   __shared__ float M[NC * LDM];
@@ -60,6 +89,7 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 
   const size_t node = blockIdx.x;
   const int tid = threadIdx.x;
+  PHASE_CLOCKS_START
 
   for (int idx = tid; idx < NX * NU; idx += kThreads) Bm[idx] = gB[node * NX * NU + idx];
   for (int idx = tid; idx < NC * NV; idx += kThreads) Gv[idx] = gGv[node * NC * NV + idx];
@@ -73,7 +103,7 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
     fm[tid] = gfm[node * NC + tid];
     p[tid] = -(1.0f - fm[tid]) * gFb[node * NC + tid];
   }
-  __syncthreads();
+  __syncthreads(); PHASE(0);
 
   // M = Gv Gv^T + diag(1 - act) (lower triangle); W's last 18 columns = Gv
   for (int idx = tid; idx < NC * NC + NC * NV; idx += kThreads) {
@@ -88,7 +118,7 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
       W[r * NW + 1 + NX + c] = Gv[r * NV + c];
     }
   }
-  __syncthreads();
+  __syncthreads(); PHASE(1);
 
   if (tid < 32) {  // right-looking Cholesky in one warp, L overwrites M
     const int lane = tid;
@@ -104,7 +134,7 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
       __syncwarp();
     }
   }
-  __syncthreads();
+  __syncthreads(); PHASE(2);
 
   for (int c = tid; c < NW; c += kThreads) {  // L L^T W = [g0 | Gx | Gv]
     for (int i = 0; i < NC; ++i) {
@@ -118,7 +148,7 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
       W[i * NW + c] = (W[i * NW + c] - acc) / M[i * LDM + i];
     }
   }
-  __syncthreads();
+  __syncthreads(); PHASE(3);
 
   // p_v = -Gv^T W_0, Px_v = -Gv^T W_x, P = I - Gv^T W_v
   for (int idx = tid; idx < NV + NV * NX + NV * NV; idx += kThreads) {
@@ -136,7 +166,7 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
       P[e] = (i == j ? 1.0f : 0.0f) - acc;
     }
   }
-  __syncthreads();
+  __syncthreads(); PHASE(4);
 
   // A_bar = A + B_v Px_v, B_bar = [B_F diag(fm) | B_v P], d_bar = d + B p
   for (int idx = tid; idx < NX * NX; idx += kThreads) {
@@ -164,7 +194,11 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
   for (int i = tid; i < NU; i += kThreads) op[node * NU + i] = p[i];
   for (int idx = tid; idx < NV * NV; idx += kThreads) oP[node * NV * NV + idx] = P[idx];
   for (int idx = tid; idx < NV * NX; idx += kThreads) oPx[node * NV * NX + idx] = Px[idx];
+  PHASE(5);
+  PHASE_CLOCKS_STORE(1)
 }
+
+#ifdef QM_LQ_SCALAR_PRODUCTS  // the measuring build: the PR 2 kernel
 
 __global__ void __launch_bounds__(kThreads)
 project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu,
@@ -173,7 +207,8 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
                     const float* __restrict__ gP, const float* __restrict__ gPx,
                     const float* __restrict__ gfm, float shift, float* __restrict__ olx,
                     float* __restrict__ olu, float* __restrict__ olxx,
-                    float* __restrict__ oluu, float* __restrict__ olux) {
+                    float* __restrict__ oluu, float* __restrict__ olux,
+                    long long* clocks) {
   __shared__ float luu[NU * NU];
   __shared__ float lux[NU * NX];
   __shared__ float P[NV * NV];
@@ -187,6 +222,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 
   const size_t node = blockIdx.x;
   const int tid = threadIdx.x;
+  PHASE_CLOCKS_START
 
   for (int idx = tid; idx < NU * NU; idx += kThreads) luu[idx] = gluu[node * NU * NU + idx];
   for (int idx = tid; idx < NU * NX; idx += kThreads) lux[idx] = glux[node * NU * NX + idx];
@@ -194,7 +230,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
   for (int idx = tid; idx < NV * NX; idx += kThreads) Px[idx] = gPx[node * NV * NX + idx];
   if (tid < NU) p[tid] = gp[node * NU + tid];
   if (tid < NC) fm[tid] = gfm[node * NC + tid];
-  __syncthreads();
+  __syncthreads(); PHASE(0);
 
   // luu is read as symmetric, as the TPU kernel reads it: luu[:, i] through row i
   constexpr int kP1 = NU + NV * NX + NC * NV + NV * NC + NV * NV + NU * NX;
@@ -242,7 +278,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
       term[e] = lux[e] + acc;
     }
   }
-  __syncthreads();
+  __syncthreads(); PHASE(1);
 
   // lx_bar, lu_bar
   for (int i = tid; i < NX + NU; i += kThreads) {
@@ -263,6 +299,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
       olu[node * NU + u] = v;
     }
   }
+  PHASE(2);
   // lxx_bar = lxx + Px^T lux_v + lux_v^T Px + Px^T (luu_vv^T Px)
   for (int idx = tid; idx < NX * NX; idx += kThreads) {
     const int i = idx / NX, j = idx - i * NX;
@@ -274,6 +311,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
     }
     olxx[node * NX * NX + idx] = ((glxx[node * NX * NX + idx] + a) + b) + c;
   }
+  PHASE(3);
   // luu_bar = Pu^T luu Pu + blkdiag(diag(1 - fm), I - P) + shift I
   for (int idx = tid; idx < NU * NU; idx += kThreads) {
     const int i = idx / NU, j = idx - i * NU;
@@ -291,6 +329,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
     }
     oluu[node * NU * NU + idx] = v;
   }
+  PHASE(4);
   // lux_bar = Pu^T (lux + luu Px)
   for (int idx = tid; idx < NU * NX; idx += kThreads) {
     const int i = idx / NX, j = idx - i * NX;
@@ -303,11 +342,307 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
     }
     olux[node * NU * NX + idx] = v;
   }
+  PHASE(5);
+  PHASE_CLOCKS_STORE(1)
 }
 
-int launch_check(long long nodes) {
+#else  // the normal build: K3b on register tiles
+
+// K3b's block: one node at a time, a loop over nodes in a grid of (SMs x
+// kCostBlocksPerSm) blocks (ops/lq.py:project_grid); 4 blocks of 51.8 KB
+// of shared memory fit an SM.
+constexpr int kCostBlocksPerSm = 4;
+constexpr int LD = 32;   // row stride of the 30- and 18-row operands (float4 rows)
+constexpr int LDP = 20;  // row stride of P and PVVT (18 columns)
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// The whole block copies a kRows x kCols block (rows packed at src, kCols
+// even) into dst with row stride kLd: 8-byte cp.async when the input's base
+// is 8-byte aligned (every node's block of every input, and every row, is a
+// multiple of 8 bytes long, so the base decides), 4-byte otherwise.
+template <int kRows, int kCols, int kLd>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, bool al8, int tid) {
+  if (al8) {
+    constexpr int kHalf = kCols / 2;
+    for (int e = tid; e < kRows * kHalf; e += kThreads) {
+      const int r = e / kHalf, c = 2 * (e - r * kHalf);
+      cp_async8(dst + r * kLd + c, src + r * kCols + c);
+    }
+  } else {
+    for (int e = tid; e < kRows * kCols; e += kThreads) {
+      const int r = e / kCols, c = e - r * kCols;
+      chol_warp::cp_async4(dst + r * kLd + c, src + r * kCols + c);
+    }
+  }
+}
+
+// acc[u][v] = sum_{q < kDepth} A[q * lda + u] * B[q * ldb + v] (u < 4, v < 6):
+// a 4 x 6 register tile of X^T Y, summed in q's order. A step of the sum
+// reads one float4 of A and three float2 of B (A and B 16- and 8-byte
+// aligned) for 24 FMAs; the lanes of a warp on one tile row or column read
+// the same addresses (a broadcast).
+template <int kDepth>
+__device__ __forceinline__ void tile46(const float* A, int lda, const float* B, int ldb,
+                                       float (&acc)[4][6]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 6; ++v) acc[u][v] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kDepth; ++q) {
+    const float4 a = *reinterpret_cast<const float4*>(A + q * lda);
+    const float2 b0 = *reinterpret_cast<const float2*>(B + q * ldb);
+    const float2 b1 = *reinterpret_cast<const float2*>(B + q * ldb + 2);
+    const float2 b2 = *reinterpret_cast<const float2*>(B + q * ldb + 4);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[6] = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 6; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+  }
+}
+
+// One node's inputs in shared memory (a set; two sets, node after node).
+struct CostSet {
+  static constexpr int kLuu = 0, kLux = kLuu + NU * LD, kPx = kLux + NU * LD,
+                       kP = kPx + NV * LD, kLxx = kP + NV * LDP, kLx = kLxx + NX * NX,
+                       kLu = kLx + 32, kp = kLu + 32, kFm = kp + 32, kFloats = kFm + 16;
+};
+// The buffers every node shares, after the two sets.
+struct CostShared {
+  static constexpr int kX = 2 * CostSet::kFloats,  // Px^T lux_v, 30 x LD
+      kT1 = kX + NX * LD,                          // luu_vv^T Px, 18 x LD
+      kTV = kT1 + NV * LD,                         // lux_v + luu_v^T Px, 18 x LD
+      kPVVT = kTV + NV * LD,                       // luu_vv^T P, 18 x LDP
+      kLup = kPVVT + NV * LDP,                     // lu + luu^T p, 32
+      kOut = kLup + 32,                            // lxx_bar, luu_bar, lux_bar: 3 x 900
+      kFloats = kOut + 3 * NX * NX;
+};
+constexpr size_t kCostSmemBytes = CostShared::kFloats * sizeof(float);
+
+__device__ __forceinline__ void stage_cost_node(float* set, const float* glx, const float* glu,
+                                                const float* glxx, const float* gluu,
+                                                const float* glux, const float* gp,
+                                                const float* gP, const float* gPx,
+                                                const float* gfm, size_t node, bool al8,
+                                                int tid) {
+  stage_rows<NU, NU, LD>(set + CostSet::kLuu, gluu + node * NU * NU, al8, tid);
+  stage_rows<NU, NX, LD>(set + CostSet::kLux, glux + node * NU * NX, al8, tid);
+  stage_rows<NV, NX, LD>(set + CostSet::kPx, gPx + node * NV * NX, al8, tid);
+  stage_rows<NV, NV, LDP>(set + CostSet::kP, gP + node * NV * NV, al8, tid);
+  stage_rows<NX, NX, NX>(set + CostSet::kLxx, glxx + node * NX * NX, al8, tid);
+  stage_rows<1, NX, NX>(set + CostSet::kLx, glx + node * NX, al8, tid);
+  stage_rows<1, NU, NU>(set + CostSet::kLu, glu + node * NU, al8, tid);
+  stage_rows<1, NU, NU>(set + CostSet::kp, gp + node * NU, al8, tid);
+  stage_rows<1, NC, NC>(set + CostSet::kFm, gfm + node * NC, al8, tid);
+  chol_warp::cp_async_commit();
+}
+
+// Per node, with the TPU kernel's sums (pallas_lq.py:_project_cost_kernel):
+//   phase 1, 104 4 x 6 tiles and lup:
+//     Y = luu_v^T [Px_v | P] (30 x 48, 64 tiles): rows < 12 give lux_bar's
+//       force rows (lux + Y) fm and luu_bar's off-diagonal blocks Y fm, each
+//       written at (i, 12 + j) and (12 + j, i) (the TPU kernel's FVP and
+//       PVF are one product and its transpose); rows >= 12 give T1 =
+//       luu_vv^T Px_v, term_v = lux_v + T1 and PVVT = luu_vv^T P;
+//     X = Px_v^T lux_v (30 x 30, 40 tiles); lup = lu + luu^T p;
+//   phase 2, 80 tiles and the vectors:
+//     lxx_bar = ((lxx + X) + X^T) + Px_v^T T1 (40 tiles);
+//     lux_bar's joint rows P^T term_v (25 tiles);
+//     luu_bar's joint block PVVT^T P + ((1 + shift) I - P) (15 tiles);
+//     luu_bar's force block, lx_bar, lu_bar (48 threads);
+//   then lxx_bar, luu_bar, lux_bar leave shared memory as float4 rows.
+// Every product is 18 deep. Outputs past row or column 30 (the float4 and
+// stride padding) are computed from unwritten shared memory and never stored.
+__global__ void __launch_bounds__(kThreads, kCostBlocksPerSm)
+project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu,
+                    const float* __restrict__ glxx, const float* __restrict__ gluu,
+                    const float* __restrict__ glux, const float* __restrict__ gp,
+                    const float* __restrict__ gP, const float* __restrict__ gPx,
+                    const float* __restrict__ gfm, float shift, float* __restrict__ olx,
+                    float* __restrict__ olu, float* __restrict__ olxx,
+                    float* __restrict__ oluu, float* __restrict__ olux, long long nodes,
+                    bool al8, long long* clocks) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  PHASE_CLOCKS_START
+  float* const X = sm + CostShared::kX;
+  float* const T1 = sm + CostShared::kT1;
+  float* const TV = sm + CostShared::kTV;
+  float* const PVVT = sm + CostShared::kPVVT;
+  float* const lup = sm + CostShared::kLup;
+  float* const o_lxx = sm + CostShared::kOut;
+  float* const o_luu = o_lxx + NX * NX;
+  float* const o_lux = o_luu + NU * NU;
+
+  if ((long long)blockIdx.x < nodes)
+    stage_cost_node(sm, glx, glu, glxx, gluu, glux, gp, gP, gPx, gfm, blockIdx.x, al8, tid);
+  long long done = 0;
+  for (long long n = blockIdx.x; n < nodes; n += gridDim.x, ++done) {
+    const size_t node = (size_t)n;
+    const float* const set = sm + (done & 1) * CostSet::kFloats;
+    const float* const luu = set + CostSet::kLuu;
+    const float* const lux = set + CostSet::kLux;
+    const float* const Px = set + CostSet::kPx;
+    const float* const P = set + CostSet::kP;
+    const float* const fm = set + CostSet::kFm;
+    chol_warp::cp_async_wait<0>();  // this thread's copies of this node
+    __syncthreads();                 // everyone's; the other set and the outputs are free
+    if (n + gridDim.x < nodes)
+      stage_cost_node(sm + ((done + 1) & 1) * CostSet::kFloats, glx, glu, glxx, gluu, glux, gp,
+                      gP, gPx, gfm, node + gridDim.x, al8, tid);
+    PHASE(0);
+
+    // --- phase 1: Y = luu_v^T [Px_v | P], X = Px_v^T lux_v, lup ----------------
+    if (tid < 64) {
+      const int ti = tid >> 3, tj = tid & 7;  // rows 4 ti.. of luu's columns; 6 tj.. of [Px_v | P]
+      const bool onP = tj >= 5;
+      const int c0 = onP ? 6 * (tj - 5) : 6 * tj;
+      float acc[4][6];
+      tile46<NV>(luu + NC * LD + 4 * ti, LD, onP ? P + c0 : Px + c0, onP ? LDP : LD, acc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 4 * ti + u;
+        if (r >= NU) continue;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) {
+          const int c = c0 + v;
+          if (!onP && r < NC) {
+            o_lux[r * NX + c] = (lux[r * LD + c] + acc[u][v]) * fm[r];
+          } else if (!onP) {
+            T1[(r - NC) * LD + c] = acc[u][v];
+            TV[(r - NC) * LD + c] = lux[r * LD + c] + acc[u][v];
+          } else if (r < NC) {
+            const float val = acc[u][v] * fm[r];
+            o_luu[r * NU + NC + c] = val;
+            o_luu[(NC + c) * NU + r] = val;
+          } else {
+            PVVT[(r - NC) * LDP + c] = acc[u][v];
+          }
+        }
+      }
+    } else if (tid < 104) {
+      const int t = tid - 64, ti = t / 5, tj = t - 5 * (t / 5);
+      float acc[4][6];
+      tile46<NV>(Px + 4 * ti, LD, lux + NC * LD + 6 * tj, LD, acc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 4 * ti + u;
+        if (r >= NX) continue;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) X[r * LD + 6 * tj + v] = acc[u][v];
+      }
+    } else {
+      const float* const p = set + CostSet::kp;
+      for (int e = tid - 104; e < NU; e += kThreads - 104) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < NU; ++q) acc = fmaf(luu[q * LD + e], p[q], acc);
+        lup[e] = set[CostSet::kLu + e] + acc;
+      }
+    }
+    __syncthreads(); PHASE(1);
+
+    // --- phase 2: lxx_bar, lux_bar's joint rows, luu_bar, lx_bar, lu_bar -------
+    if (tid < 40) {
+      const int ti = tid / 5, tj = tid - 5 * (tid / 5);
+      const float* const lxx = set + CostSet::kLxx;
+      float acc[4][6];
+      tile46<NV>(Px + 4 * ti, LD, T1 + 6 * tj, LD, acc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 4 * ti + u;
+        if (r >= NX) continue;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) {
+          const int c = 6 * tj + v;
+          o_lxx[r * NX + c] = ((lxx[r * NX + c] + X[r * LD + c]) + X[c * LD + r]) + acc[u][v];
+        }
+      }
+    } else if (tid < 65) {
+      const int t = tid - 40, ti = t / 5, tj = t - 5 * (t / 5);
+      float acc[4][6];
+      tile46<NV>(P + 4 * ti, LDP, TV + 6 * tj, LD, acc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 4 * ti + u;
+        if (r >= NV) continue;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) o_lux[(NC + r) * NX + 6 * tj + v] = acc[u][v];
+      }
+    } else if (tid < 80) {
+      const int t = tid - 65, ti = t / 3, tj = t - 3 * (t / 3);
+      float acc[4][6];
+      tile46<NV>(PVVT + 4 * ti, LDP, P + 6 * tj, LDP, acc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 4 * ti + u;
+        if (r >= NV) continue;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) {
+          const int c = 6 * tj + v;
+          o_luu[(NC + r) * NU + NC + c] =
+              acc[u][v] + ((r == c ? 1.0f + shift : 0.0f) - P[r * LDP + c]);
+        }
+      }
+    } else {
+      for (int e = tid - 80; e < NC * NC; e += kThreads - 80) {
+        const int i = e / NC, j = e - i * NC;
+        o_luu[i * NU + j] =
+            luu[i * LD + j] * fm[i] * fm[j] + (i == j ? (1.0f - fm[i]) + shift : 0.0f);
+      }
+      const int e = tid - 80;
+      if (e < NX) {
+        const float* const p = set + CostSet::kp;
+        float a = 0.0f, b = 0.0f;
+#pragma unroll
+        for (int q = 0; q < NV; ++q) a = fmaf(Px[q * LD + e], lup[NC + q], a);
+#pragma unroll
+        for (int q = 0; q < NU; ++q) b = fmaf(lux[q * LD + e], p[q], b);
+        olx[node * NX + e] = (set[CostSet::kLx + e] + a) + b;
+        float v;
+        if (e < NC) {
+          v = fm[e] * lup[e];
+        } else {
+          v = 0.0f;
+#pragma unroll
+          for (int q = 0; q < NV; ++q) v = fmaf(P[q * LDP + e - NC], lup[NC + q], v);
+        }
+        olu[node * NU + e] = v;
+      }
+    }
+    __syncthreads(); PHASE(2);
+
+    // --- lxx_bar, luu_bar, lux_bar to HBM, coalesced float4 --------------------
+    constexpr int kQuads = NX * NX / 4;
+    for (int e = tid; e < 3 * kQuads; e += kThreads) {
+      const int m = e / kQuads, k = e - m * kQuads;
+      float* const out = m == 0 ? olxx : (m == 1 ? oluu : olux);
+      reinterpret_cast<float4*>(out + node * NX * NX)[k] =
+          reinterpret_cast<const float4*>(o_lxx + m * NX * NX)[k];
+    }
+    PHASE(3);
+  }
+  PHASE_CLOCKS_STORE(done)
+}
+
+#endif  // QM_LQ_SCALAR_PRODUCTS
+
+// The node count and, for a kernel that loops over nodes, its grid:
+// 1 <= blocks <= nodes (blocks is read only when nodes > 0).
+int launch_check(long long nodes, int blocks) {
   if (nodes < 0 || nodes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (nodes > 0 && (blocks < 1 || blocks > nodes)) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+bool aligned(const void* ptr, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(ptr) & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -315,33 +650,53 @@ int launch_check(long long nodes) {
 // K3a over `nodes` batch-major nodes: A, B (nodes, 30, 30), d (nodes, 30),
 // g0 (nodes, 12), Gx (nodes, 12, 30), Gv (nodes, 12, 18), F_bar, act, fm
 // (nodes, 12) -> A_bar, B_bar (nodes, 30, 30), d_bar, p (nodes, 30),
-// P (nodes, 18, 18), Px_v (nodes, 18, 30). Returns cudaGetLastError().
+// P (nodes, 18, 18), Px_v (nodes, 18, 30). `blocks` is the grid of the
+// kernel that loops over nodes (ops/lq.py:project_grid); `clocks` (7 int64,
+// or NULL) is written by the phase-clock build only. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a launch it refuses.
 extern "C" int qm_lq_project_geom_f32(const float* A, const float* B, const float* d,
                                       const float* g0, const float* Gx, const float* Gv,
                                       const float* F_bar, const float* act, const float* fm,
                                       float* A_bar, float* B_bar, float* d_bar, float* p,
-                                      float* P, float* Px_v, long long nodes, void* stream) {
-  const int err = launch_check(nodes);
+                                      float* P, float* Px_v, long long nodes, int blocks,
+                                      void* stream, long long* clocks) {
+  const int err = launch_check(nodes, blocks);
   if (err != 0 || nodes == 0) return err;
   project_geom_kernel<<<(unsigned)nodes, kThreads, 0, (cudaStream_t)stream>>>(
-      A, B, d, g0, Gx, Gv, F_bar, act, fm, A_bar, B_bar, d_bar, p, P, Px_v);
+      A, B, d, g0, Gx, Gv, F_bar, act, fm, A_bar, B_bar, d_bar, p, P, Px_v, clocks);
   return (int)cudaGetLastError();
 }
 
 // K3b over `nodes` batch-major nodes: lx, lu (nodes, 30), lxx, luu, lux
 // (nodes, 30, 30), p (nodes, 30), P (nodes, 18, 18), Px_v (nodes, 18, 30),
 // fm (nodes, 12) -> the projected lx, lu, lxx, luu (shift on the diagonal),
-// lux. Returns cudaGetLastError().
+// lux; `blocks` and `clocks` as for K3a. The outputs' bases must be 16-byte
+// aligned (the wrapper allocates them); the inputs may have any alignment.
 extern "C" int qm_lq_project_cost_f32(const float* lx, const float* lu, const float* lxx,
                                       const float* luu, const float* lux, const float* p,
                                       const float* P, const float* Px_v, const float* fm,
                                       float shift, float* lx_bar, float* lu_bar,
                                       float* lxx_bar, float* luu_bar, float* lux_bar,
-                                      long long nodes, void* stream) {
-  const int err = launch_check(nodes);
+                                      long long nodes, int blocks, void* stream,
+                                      long long* clocks) {
+  const int err = launch_check(nodes, blocks);
   if (err != 0 || nodes == 0) return err;
+#ifdef QM_LQ_SCALAR_PRODUCTS
   project_cost_kernel<<<(unsigned)nodes, kThreads, 0, (cudaStream_t)stream>>>(
       lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
-      lux_bar);
+      lux_bar, clocks);
+#else
+  if (!(aligned(lxx_bar, 16) && aligned(luu_bar, 16) && aligned(lux_bar, 16)))
+    return (int)cudaErrorInvalidValue;
+  const bool al8 = aligned(lx, 8) && aligned(lu, 8) && aligned(lxx, 8) && aligned(luu, 8) &&
+                   aligned(lux, 8) && aligned(p, 8) && aligned(P, 8) && aligned(Px_v, 8) &&
+                   aligned(fm, 8);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      project_cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kCostSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  project_cost_kernel<<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
+      lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
+      lux_bar, nodes, al8, clocks);
+#endif
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,10 @@ NX = 30
 NU = 30  # reduced input dim of the Cholesky projector (12 forces + 18 joints)
 NV = 18
 NC = 12
+# the wrappers' output tails: K3a (A_bar, B_bar, d_bar, p, P, Px_v) and
+# K3b (lx, lu, lxx, luu, lux), projected
+GEOM_OUT = ((NX, NX), (NX, NU), (NX,), (NU,), (NV, NV), (NV, NX))
+COST_OUT = ((NX,), (NU,), (NX, NX), (NU, NU), (NU, NX))
 
 
 def _tm(X, Y):
@@ -84,6 +88,58 @@ def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
 
 
+# --- K3a, K3b: the builds of csrc/lq_project.cu --------------------------------
+
+PHASE_CLOCKS = "QM_LQ_PHASE_CLOCKS"        # diagnostic build: cycles a phase
+SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the PR 2 kernels
+_PROJECT_ARGTYPES = {
+    "geom": [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
+    "cost": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+            + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
+}
+# blocks an SM each kernel's __launch_bounds__ asks for (kGeomBlocksPerSm,
+# kCostBlocksPerSm in csrc/lq_project.cu): its grid is one wave of them
+BLOCKS_PER_SM = {"geom": 4, "cost": 4}
+
+
+def project_grid(nodes: int, sms: int, blocks_per_sm: int) -> int:
+    """The grid of K3a or K3b: one block an SM slot, each looping over the
+    nodes blockIdx.x, blockIdx.x + grid, ...; never more blocks than nodes.
+    ``nodes`` >= 1."""
+    if nodes < 1 or sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"project_grid: nodes = {nodes}, sms = {sms}, "
+                         f"blocks_per_sm = {blocks_per_sm}")
+    return min(nodes, sms * blocks_per_sm)
+
+
+_sms: dict = {}
+
+
+def launch_grid(kernel: str, nodes: int, device) -> int:
+    """:func:`project_grid` on ``device``'s SM count."""
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return project_grid(nodes, sms, BLOCKS_PER_SM[kernel])
+
+
+def project_fn(kernel: str, defines=()):
+    """The C entry point of K3a (``kernel="geom"``) or K3b (``"cost"``) from
+    the lq_project library built with ``defines``. The wrappers take the
+    normal build; ``(PHASE_CLOCKS,)`` and ``(SCALAR_PRODUCTS,)`` are for
+    measuring on the card. Its last arguments are the node count, the grid
+    (:func:`launch_grid`), the stream and ``clocks`` (7 int64 or None),
+    written by the phase-clock build only."""
+    key = (f"qm_lq_project_{kernel}_f32", tuple(defines))
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(load("lq_project", tuple(defines)), key[0])
+        fn.argtypes = _PROJECT_ARGTYPES[kernel]
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
 # --- K3a: projector geometry + dynamics substitution -------------------------
 
 def project_geom_plain(A, B, d, g0, Gx, Gv, F_bar, act, fm):
@@ -118,15 +174,13 @@ def project_geom(A, B, d, g0, Gx, Gv, F_bar, act, fm):
         ("act", act, (NC,)), ("fm", fm, (NC,))])
     if not on_cuda("project_geom", *ins):
         return project_geom_plain(*ins)
-    outs = tuple(torch.empty(*lead, *tail, dtype=A.dtype, device=A.device)
-                 for tail in ((NX, NX), (NX, NU), (NX,), (NU,), (NV, NV), (NV, NX)))
+    outs = tuple(torch.empty(*lead, *tail, dtype=A.dtype, device=A.device) for tail in GEOM_OUT)
     nodes = A[..., 0, 0].numel()
     if nodes == 0:
         return outs
-    fn = _c_fn("lq_project", "qm_lq_project_geom_f32",
-               [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_void_p])
     with torch.cuda.device(A.device):
-        err = fn(*_ptrs(ins + outs), nodes, _stream(A))
+        err = project_fn("geom")(*_ptrs(ins + outs), nodes,
+                                 launch_grid("geom", nodes, A.device), _stream(A), None)
     check_launch("project_geom", err)
     project_geom.launches += 1
     return outs
@@ -171,15 +225,13 @@ def project_cost(lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift: float = 1e-5):
     if not on_cuda("project_cost", *ins):
         return project_cost_plain(*ins, shift=shift)
     outs = tuple(torch.empty(*lead, *tail, dtype=lxx.dtype, device=lxx.device)
-                 for tail in ((NX,), (NU,), (NX, NX), (NU, NU), (NU, NX)))
+                 for tail in COST_OUT)
     nodes = lxx[..., 0, 0].numel()
     if nodes == 0:
         return outs
-    fn = _c_fn("lq_project", "qm_lq_project_cost_f32",
-               [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
-               + [ctypes.c_longlong, ctypes.c_void_p])
     with torch.cuda.device(lxx.device):
-        err = fn(*_ptrs(ins), float(shift), *_ptrs(outs), nodes, _stream(lxx))
+        err = project_fn("cost")(*_ptrs(ins), float(shift), *_ptrs(outs), nodes,
+                                 launch_grid("cost", nodes, lxx.device), _stream(lxx), None)
     check_launch("project_cost", err)
     project_cost.launches += 1
     return outs
