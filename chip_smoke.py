@@ -665,11 +665,12 @@ def projection_data(Bb, N, pattern, seed):
     return geom, cost
 
 
-def lq_project_call(kid, defines, args, shift=0.0, clocks=None):
+def lq_project_call(kid, defines, args, shift=0.0, clocks=None, blocks_per_sm=None):
     """A call that launches K3a or K3b from the lq_project build with
     `defines` on CUDA tensors `args` (its wrapper's inputs) into outputs
     allocated once, and returns them; the wrapper's launch counter is not
-    touched. `clocks` (7 int64 on the card) is for the phase-clock build."""
+    touched. `clocks` (7 int64 on the card) is for the phase-clock build;
+    `blocks_per_sm` sets the grid of a build with another block shape."""
     import torch
 
     from qm_door_torch.ops import lq as tl
@@ -682,7 +683,7 @@ def lq_project_call(kid, defines, args, shift=0.0, clocks=None):
     nodes = int(np.prod(lead))
     kernel = "geom" if geom else "cost"
     fn = tl.project_fn(kernel, defines)
-    blocks = tl.launch_grid(kernel, nodes, args[0].device)
+    blocks = tl.launch_grid(kernel, nodes, args[0].device, blocks_per_sm)
     stream = torch.cuda.current_stream(args[0].device).cuda_stream
     ptrs = lambda ts: [t.data_ptr() for t in ts]  # noqa: E731
     clk = None if clocks is None else clocks.data_ptr()

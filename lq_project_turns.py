@@ -8,11 +8,13 @@ qm_door_torch/csrc/lq_project.cu compiles, besides its normal build, the
 measuring build -DQM_LQ_SCALAR_PRODUCTS (the PR 2 kernels: one block a
 node, one output entry a thread) and, for either, the diagnostic build
 -DQM_LQ_PHASE_CLOCKS (clock64() cycles a node of each phase). This script
-builds the four (one nvcc each, all at once), reads each kernel's registers
-and spill stores from ptxas, holds each timing build's K3a and K3b to
-PROJECTION_REL_TOL of the f64 plain version on every fm/act pattern of
-chip_smoke.projection_data, and times the two builds in chained calls
-between CUDA events, in turns (scalar, new, new, scalar), at the solver's
+builds the four and the block-shape variants of VARIANTS (one nvcc each,
+all at once), reads each kernel's registers and spill stores from ptxas,
+holds each timing build's K3a and K3b to PROJECTION_REL_TOL of the f64
+plain version on every fm/act pattern of chip_smoke.projection_data (the
+variants on the path data), and times the builds in chained calls between
+CUDA events, in turns (scalar, new, variants, variants reversed, new,
+scalar), at the solver's
 shape: 384 x 67 = 25,728 nodes, f32, on the JAX tests' random recipe with a
 random mix of contacts (the kernels have no data-dependent branch or loop
 bound, so the time does not depend on the values). Prints one JSON line per
@@ -30,6 +32,12 @@ from chip_smoke import (PROJECTION_PATTERNS, PROJECTION_REL_TOL, card_line, cuda
 PATH = (384, 67)
 SHIFT = 1e-5
 KERNELS = {"K3a": "project_geom_kernel", "K3b": "project_cost_kernel"}
+# measuring builds of each kernel beside "new" and "scalar": name ->
+# (defines, blocks an SM its __launch_bounds__ asks for)
+VARIANTS = {"K3a": {},
+            "K3b": {"cost_unroll18": (("QM_LQ_COST_UNROLL=18",), 4),
+                    "cost_unroll2": (("QM_LQ_COST_UNROLL=2",), 4),
+                    "cost_blocks3": (("QM_LQ_COST_BLOCKS=3",), 3)}}
 
 
 def registers(report, kernel):
@@ -75,6 +83,7 @@ def main():
     dev = torch.device("cuda", 0)
     builds = {"new": (), "scalar": (SCALAR_PRODUCTS,)}
     every = list(builds.values()) + [d + (PHASE_CLOCKS,) for d in builds.values()]
+    every += [d for v in VARIANTS.values() for d, _ in v.values()]
     with ThreadPoolExecutor(len(every)) as pool:
         reports = dict(zip(every, pool.map(lambda d: cuda_build.build("lq_project", d), every)))
     ptxas = {}
@@ -100,13 +109,17 @@ def main():
     for kid, (args, ref) in inputs(*PATH, "mix", 0, dev).items():
         row = {}
         calls = {b: lq_project_call(kid, d, args, SHIFT) for b, d in builds.items()}
+        calls.update({b: lq_project_call(kid, d, args, SHIFT, blocks_per_sm=bps)
+                      for b, (d, bps) in VARIANTS[kid].items()})
         for build, call in calls.items():
             rel, err = rel_err(call(), ref)
             if not rel <= PROJECTION_REL_TOL:
                 raise RuntimeError(f"{kid} {build}: relative error {rel:.3e}")
-            row[build] = {"rel_err": rel, "max_abs_err": err, "ms_turns": [],
-                          "phase_cycles_per_node": lq_phases(kid, builds[build], args, SHIFT)}
-        for build in ("scalar", "new", "new", "scalar"):
+            row[build] = {"rel_err": rel, "max_abs_err": err, "ms_turns": []}
+            if build in builds:
+                row[build]["phase_cycles_per_node"] = lq_phases(kid, builds[build], args, SHIFT)
+        order = ["scalar", "new"] + list(VARIANTS[kid])
+        for build in order + order[::-1]:
             row[build]["ms_turns"].append(cuda_ms(calls[build], reps=50))
         for build in row:
             row[build]["ms"] = float(np.mean(row[build]["ms_turns"]))

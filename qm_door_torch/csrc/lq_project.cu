@@ -348,43 +348,84 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 
 #else  // the normal build: K3b on register tiles
 
-// K3b's block: one node at a time, a loop over nodes in a grid of (SMs x
-// kCostBlocksPerSm) blocks (ops/lq.py:project_grid); 4 blocks of 51.8 KB
-// of shared memory fit an SM.
-constexpr int kCostBlocksPerSm = 4;
-constexpr int LD = 32;   // row stride of the 30- and 18-row operands (float4 rows)
-constexpr int LDP = 20;  // row stride of P and PVVT (18 columns)
+// K3b's block shape: 128 threads, one node at a time, looping over the
+// nodes in a grid of (SMs x kCostBlocks) blocks (ops/lq.py:project_grid).
+// -DQM_LQ_COST_BLOCKS and -DQM_LQ_COST_UNROLL (the unroll of a tile's sum)
+// are measuring builds (lq_project_turns.py); the normal build is 4 and 6.
+#ifndef QM_LQ_COST_BLOCKS
+#define QM_LQ_COST_BLOCKS 4
+#endif
+#ifndef QM_LQ_COST_UNROLL
+#define QM_LQ_COST_UNROLL 6
+#endif
+constexpr int kCostBlocks = QM_LQ_COST_BLOCKS;
+constexpr int kUnroll = QM_LQ_COST_UNROLL;
 
-__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// The whole block copies a kRows x kCols block (rows packed at src, kCols
-// even) into dst with row stride kLd: 8-byte cp.async when the input's base
-// is 8-byte aligned (every node's block of every input, and every row, is a
-// multiple of 8 bytes long, so the base decides), 4-byte otherwise.
-template <int kRows, int kCols, int kLd>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, bool al8, int tid) {
-  if (al8) {
-    constexpr int kHalf = kCols / 2;
-    for (int e = tid; e < kRows * kHalf; e += kThreads) {
-      const int r = e / kHalf, c = 2 * (e - r * kHalf);
-      cp_async8(dst + r * kLd + c, src + r * kCols + c);
-    }
-  } else {
-    for (int e = tid; e < kRows * kCols; e += kThreads) {
-      const int r = e / kCols, c = e - r * kCols;
-      chol_warp::cp_async4(dst + r * kLd + c, src + r * kCols + c);
-    }
-  }
+// --- Hopper's bulk copies (the TMA's 1-D form) and their mbarrier -----------
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that expects `bytes` of bulk copies to complete on `bar`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` from shared to global memory, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's writes to shared memory before a bulk store reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // acc[u][v] = sum_{q < kDepth} A[q * lda + u] * B[q * ldb + v] (u < 4, v < 6):
-// a 4 x 6 register tile of X^T Y, summed in q's order. A step of the sum
-// reads one float4 of A and three float2 of B (A and B 16- and 8-byte
-// aligned) for 24 FMAs; the lanes of a warp on one tile row or column read
-// the same addresses (a broadcast).
+// a 4 x 6 register tile of X^T Y, summed in q's order (the order of the
+// TPU kernel's _mtm). A step of the sum reads two float2 of A and three of
+// B (8-byte aligned) for 24 FMAs; the lanes of a warp on one tile row or
+// column read the same addresses (a broadcast).
 template <int kDepth>
 __device__ __forceinline__ void tile46(const float* A, int lda, const float* B, int ldb,
                                        float (&acc)[4][6]) {
@@ -392,13 +433,14 @@ __device__ __forceinline__ void tile46(const float* A, int lda, const float* B, 
   for (int u = 0; u < 4; ++u)
 #pragma unroll
     for (int v = 0; v < 6; ++v) acc[u][v] = 0.0f;
-#pragma unroll
+#pragma unroll kUnroll
   for (int q = 0; q < kDepth; ++q) {
-    const float4 a = *reinterpret_cast<const float4*>(A + q * lda);
+    const float2 a0 = *reinterpret_cast<const float2*>(A + q * lda);
+    const float2 a1 = *reinterpret_cast<const float2*>(A + q * lda + 2);
     const float2 b0 = *reinterpret_cast<const float2*>(B + q * ldb);
     const float2 b1 = *reinterpret_cast<const float2*>(B + q * ldb + 2);
     const float2 b2 = *reinterpret_cast<const float2*>(B + q * ldb + 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float av[4] = {a0.x, a0.y, a1.x, a1.y};
     const float bv[6] = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -407,39 +449,63 @@ __device__ __forceinline__ void tile46(const float* A, int lda, const float* B, 
   }
 }
 
-// One node's inputs in shared memory (a set; two sets, node after node).
+// One node's inputs in shared memory, each as it lies in HBM (a set; two
+// sets, node after node), every buffer 16-byte aligned.
 struct CostSet {
-  static constexpr int kLuu = 0, kLux = kLuu + NU * LD, kPx = kLux + NU * LD,
-                       kP = kPx + NV * LD, kLxx = kP + NV * LDP, kLx = kLxx + NX * NX,
-                       kLu = kLx + 32, kp = kLu + 32, kFm = kp + 32, kFloats = kFm + 16;
+  static constexpr int kLuu = 0, kLux = kLuu + NU * NU, kLxx = kLux + NU * NX,
+                       kPx = kLxx + NX * NX, kP = kPx + NV * NX, kFm = kP + NV * NV,
+                       kLx = kFm + NC, kLu = kLx + 32, kp = kLu + 32, kFloats = kp + 32;
+  // bytes of the bulk-copied inputs (luu, lux, lxx, Px_v, P, fm)
+  static constexpr unsigned kBulkBytes = (3 * NX * NX + NV * NX + NV * NV + NC) * 4;
 };
 // The buffers every node shares, after the two sets.
 struct CostShared {
-  static constexpr int kX = 2 * CostSet::kFloats,  // Px^T lux_v, 30 x LD
-      kT1 = kX + NX * LD,                          // luu_vv^T Px, 18 x LD
-      kTV = kT1 + NV * LD,                         // lux_v + luu_v^T Px, 18 x LD
-      kPVVT = kTV + NV * LD,                       // luu_vv^T P, 18 x LDP
-      kLup = kPVVT + NV * LDP,                     // lu + luu^T p, 32
+  static constexpr int kX = 2 * CostSet::kFloats,  // Px^T lux_v, 30 x 30
+      kT1 = kX + NX * NX,                          // luu_vv^T Px, 18 x 30
+      kTV = kT1 + NV * NX,                         // lux_v + luu_v^T Px, 18 x 30
+      kPVVT = kTV + NV * NX,                       // luu_vv^T P, 18 x 18
+      kLup = kPVVT + NV * NV,                      // lu + luu^T p, 32
       kOut = kLup + 32,                            // lxx_bar, luu_bar, lux_bar: 3 x 900
-      kFloats = kOut + 3 * NX * NX;
+      kBar = kOut + 3 * NX * NX,                   // two mbarriers, one a set
+      kFloats = kBar + 4;
 };
 constexpr size_t kCostSmemBytes = CostShared::kFloats * sizeof(float);
 
-__device__ __forceinline__ void stage_cost_node(float* set, const float* glx, const float* glu,
-                                                const float* glxx, const float* gluu,
-                                                const float* glux, const float* gp,
-                                                const float* gP, const float* gPx,
-                                                const float* gfm, size_t node, bool al8,
-                                                int tid) {
-  stage_rows<NU, NU, LD>(set + CostSet::kLuu, gluu + node * NU * NU, al8, tid);
-  stage_rows<NU, NX, LD>(set + CostSet::kLux, glux + node * NU * NX, al8, tid);
-  stage_rows<NV, NX, LD>(set + CostSet::kPx, gPx + node * NV * NX, al8, tid);
-  stage_rows<NV, NV, LDP>(set + CostSet::kP, gP + node * NV * NV, al8, tid);
-  stage_rows<NX, NX, NX>(set + CostSet::kLxx, glxx + node * NX * NX, al8, tid);
-  stage_rows<1, NX, NX>(set + CostSet::kLx, glx + node * NX, al8, tid);
-  stage_rows<1, NU, NU>(set + CostSet::kLu, glu + node * NU, al8, tid);
-  stage_rows<1, NU, NU>(set + CostSet::kp, gp + node * NU, al8, tid);
-  stage_rows<1, NC, NC>(set + CostSet::kFm, gfm + node * NC, al8, tid);
+// Set off node `node`'s copies into `set`: with kBulk (every input 16-byte
+// aligned) thread 0 issues one bulk copy an input (luu, lux, lxx, Px_v, P,
+// fm: whole multiples of 16 bytes a node) on the set's mbarrier; otherwise
+// the block copies them with 4-byte cp.async. The 30-float vectors (lx,
+// lu, p: 120 bytes, not 16-byte aligned on odd nodes) always go by 4-byte
+// cp.async, one float a thread.
+template <bool kBulk>
+__device__ __forceinline__ void stage_cost_node(float* set, uint64_t* bar, const float* glx,
+                                                const float* glu, const float* glxx,
+                                                const float* gluu, const float* glux,
+                                                const float* gp, const float* gP,
+                                                const float* gPx, const float* gfm,
+                                                size_t node, int tid) {
+  const float* src[6] = {gluu + node * NU * NU, glux + node * NU * NX, glxx + node * NX * NX,
+                         gPx + node * NV * NX, gP + node * NV * NV, gfm + node * NC};
+  constexpr int kDst[6] = {CostSet::kLuu, CostSet::kLux, CostSet::kLxx,
+                           CostSet::kPx, CostSet::kP, CostSet::kFm};
+  constexpr int kCount[6] = {NU * NU, NU * NX, NX * NX, NV * NX, NV * NV, NC};
+  if constexpr (kBulk) {
+    if (tid == 0) {
+      mbar_expect(bar, CostSet::kBulkBytes);
+#pragma unroll
+      for (int m = 0; m < 6; ++m) bulk_load(set + kDst[m], src[m], 4 * kCount[m], bar);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 6; ++m)
+      for (int e = tid; e < kCount[m]; e += kThreads)
+        chol_warp::cp_async4(set + kDst[m] + e, src[m] + e);
+  }
+  if (tid < NX) {
+    chol_warp::cp_async4(set + CostSet::kLx + tid, glx + node * NX + tid);
+    chol_warp::cp_async4(set + CostSet::kLu + tid, glu + node * NU + tid);
+    chol_warp::cp_async4(set + CostSet::kp + tid, gp + node * NU + tid);
+  }
   chol_warp::cp_async_commit();
 }
 
@@ -456,10 +522,12 @@ __device__ __forceinline__ void stage_cost_node(float* set, const float* glx, co
 //     lux_bar's joint rows P^T term_v (25 tiles);
 //     luu_bar's joint block PVVT^T P + ((1 + shift) I - P) (15 tiles);
 //     luu_bar's force block, lx_bar, lu_bar (48 threads);
-//   then lxx_bar, luu_bar, lux_bar leave shared memory as float4 rows.
-// Every product is 18 deep. Outputs past row or column 30 (the float4 and
-// stride padding) are computed from unwritten shared memory and never stored.
-__global__ void __launch_bounds__(kThreads, kCostBlocksPerSm)
+//   then lxx_bar, luu_bar, lux_bar leave shared memory as three bulk stores.
+// Every product is 18 deep. Tile rows and columns past an operand's end
+// (the 4 x 6 grid's padding) read neighbouring shared memory and are never
+// stored.
+template <bool kBulk>
+__global__ void __launch_bounds__(kThreads, kCostBlocks)
 project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu,
                     const float* __restrict__ glxx, const float* __restrict__ gluu,
                     const float* __restrict__ glux, const float* __restrict__ gp,
@@ -467,7 +535,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
                     const float* __restrict__ gfm, float shift, float* __restrict__ olx,
                     float* __restrict__ olu, float* __restrict__ olxx,
                     float* __restrict__ oluu, float* __restrict__ olux, long long nodes,
-                    bool al8, long long* clocks) {
+                    long long* clocks) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
   PHASE_CLOCKS_START
@@ -479,23 +547,32 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
   float* const o_lxx = sm + CostShared::kOut;
   float* const o_luu = o_lxx + NX * NX;
   float* const o_lux = o_luu + NU * NU;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(sm + CostShared::kBar);
 
-  if ((long long)blockIdx.x < nodes)
-    stage_cost_node(sm, glx, glu, glxx, gluu, glux, gp, gP, gPx, gfm, blockIdx.x, al8, tid);
+  if (kBulk && tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+  }
+  __syncthreads();
+  stage_cost_node<kBulk>(sm, bars, glx, glu, glxx, gluu, glux, gp, gP, gPx, gfm, blockIdx.x,
+                         tid);
   long long done = 0;
   for (long long n = blockIdx.x; n < nodes; n += gridDim.x, ++done) {
     const size_t node = (size_t)n;
-    const float* const set = sm + (done & 1) * CostSet::kFloats;
+    const int s = (int)(done & 1);
+    const float* const set = sm + s * CostSet::kFloats;
     const float* const luu = set + CostSet::kLuu;
     const float* const lux = set + CostSet::kLux;
     const float* const Px = set + CostSet::kPx;
     const float* const P = set + CostSet::kP;
     const float* const fm = set + CostSet::kFm;
-    chol_warp::cp_async_wait<0>();  // this thread's copies of this node
-    __syncthreads();                 // everyone's; the other set and the outputs are free
+    chol_warp::cp_async_wait<0>();  // this thread's 4-byte copies of this node
+    if constexpr (kBulk) mbar_wait(bars + s, (unsigned)(done >> 1) & 1u);  // the bulk copies
+    if (tid == 0) bulk_wait_read();  // the last node's outputs have left shared memory
+    __syncthreads();                 // the other set and the outputs are free
     if (n + gridDim.x < nodes)
-      stage_cost_node(sm + ((done + 1) & 1) * CostSet::kFloats, glx, glu, glxx, gluu, glux, gp,
-                      gP, gPx, gfm, node + gridDim.x, al8, tid);
+      stage_cost_node<kBulk>(sm + (1 - s) * CostSet::kFloats, bars + 1 - s, glx, glu, glxx,
+                             gluu, glux, gp, gP, gPx, gfm, node + gridDim.x, tid);
     PHASE(0);
 
     // --- phase 1: Y = luu_v^T [Px_v | P], X = Px_v^T lux_v, lup ----------------
@@ -504,7 +581,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
       const bool onP = tj >= 5;
       const int c0 = onP ? 6 * (tj - 5) : 6 * tj;
       float acc[4][6];
-      tile46<NV>(luu + NC * LD + 4 * ti, LD, onP ? P + c0 : Px + c0, onP ? LDP : LD, acc);
+      tile46<NV>(luu + NC * NU + 4 * ti, NU, onP ? P + c0 : Px + c0, onP ? NV : NX, acc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = 4 * ti + u;
@@ -513,36 +590,36 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
         for (int v = 0; v < 6; ++v) {
           const int c = c0 + v;
           if (!onP && r < NC) {
-            o_lux[r * NX + c] = (lux[r * LD + c] + acc[u][v]) * fm[r];
+            o_lux[r * NX + c] = (lux[r * NX + c] + acc[u][v]) * fm[r];
           } else if (!onP) {
-            T1[(r - NC) * LD + c] = acc[u][v];
-            TV[(r - NC) * LD + c] = lux[r * LD + c] + acc[u][v];
+            T1[(r - NC) * NX + c] = acc[u][v];
+            TV[(r - NC) * NX + c] = lux[r * NX + c] + acc[u][v];
           } else if (r < NC) {
             const float val = acc[u][v] * fm[r];
             o_luu[r * NU + NC + c] = val;
             o_luu[(NC + c) * NU + r] = val;
           } else {
-            PVVT[(r - NC) * LDP + c] = acc[u][v];
+            PVVT[(r - NC) * NV + c] = acc[u][v];
           }
         }
       }
     } else if (tid < 104) {
       const int t = tid - 64, ti = t / 5, tj = t - 5 * (t / 5);
       float acc[4][6];
-      tile46<NV>(Px + 4 * ti, LD, lux + NC * LD + 6 * tj, LD, acc);
+      tile46<NV>(Px + 4 * ti, NX, lux + NC * NX + 6 * tj, NX, acc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = 4 * ti + u;
         if (r >= NX) continue;
 #pragma unroll
-        for (int v = 0; v < 6; ++v) X[r * LD + 6 * tj + v] = acc[u][v];
+        for (int v = 0; v < 6; ++v) X[r * NX + 6 * tj + v] = acc[u][v];
       }
     } else {
       const float* const p = set + CostSet::kp;
       for (int e = tid - 104; e < NU; e += kThreads - 104) {
         float acc = 0.0f;
 #pragma unroll
-        for (int q = 0; q < NU; ++q) acc = fmaf(luu[q * LD + e], p[q], acc);
+        for (int q = 0; q < NU; ++q) acc = fmaf(luu[q * NU + e], p[q], acc);
         lup[e] = set[CostSet::kLu + e] + acc;
       }
     }
@@ -553,7 +630,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
       const int ti = tid / 5, tj = tid - 5 * (tid / 5);
       const float* const lxx = set + CostSet::kLxx;
       float acc[4][6];
-      tile46<NV>(Px + 4 * ti, LD, T1 + 6 * tj, LD, acc);
+      tile46<NV>(Px + 4 * ti, NX, T1 + 6 * tj, NX, acc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = 4 * ti + u;
@@ -561,13 +638,13 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 #pragma unroll
         for (int v = 0; v < 6; ++v) {
           const int c = 6 * tj + v;
-          o_lxx[r * NX + c] = ((lxx[r * NX + c] + X[r * LD + c]) + X[c * LD + r]) + acc[u][v];
+          o_lxx[r * NX + c] = ((lxx[r * NX + c] + X[r * NX + c]) + X[c * NX + r]) + acc[u][v];
         }
       }
     } else if (tid < 65) {
       const int t = tid - 40, ti = t / 5, tj = t - 5 * (t / 5);
       float acc[4][6];
-      tile46<NV>(P + 4 * ti, LDP, TV + 6 * tj, LD, acc);
+      tile46<NV>(P + 4 * ti, NV, TV + 6 * tj, NX, acc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = 4 * ti + u;
@@ -578,7 +655,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
     } else if (tid < 80) {
       const int t = tid - 65, ti = t / 3, tj = t - 3 * (t / 3);
       float acc[4][6];
-      tile46<NV>(PVVT + 4 * ti, LDP, P + 6 * tj, LDP, acc);
+      tile46<NV>(PVVT + 4 * ti, NV, P + 6 * tj, NV, acc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = 4 * ti + u;
@@ -587,23 +664,23 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
         for (int v = 0; v < 6; ++v) {
           const int c = 6 * tj + v;
           o_luu[(NC + r) * NU + NC + c] =
-              acc[u][v] + ((r == c ? 1.0f + shift : 0.0f) - P[r * LDP + c]);
+              acc[u][v] + ((r == c ? 1.0f + shift : 0.0f) - P[r * NV + c]);
         }
       }
     } else {
       for (int e = tid - 80; e < NC * NC; e += kThreads - 80) {
         const int i = e / NC, j = e - i * NC;
         o_luu[i * NU + j] =
-            luu[i * LD + j] * fm[i] * fm[j] + (i == j ? (1.0f - fm[i]) + shift : 0.0f);
+            luu[i * NU + j] * fm[i] * fm[j] + (i == j ? (1.0f - fm[i]) + shift : 0.0f);
       }
       const int e = tid - 80;
       if (e < NX) {
         const float* const p = set + CostSet::kp;
         float a = 0.0f, b = 0.0f;
 #pragma unroll
-        for (int q = 0; q < NV; ++q) a = fmaf(Px[q * LD + e], lup[NC + q], a);
+        for (int q = 0; q < NV; ++q) a = fmaf(Px[q * NX + e], lup[NC + q], a);
 #pragma unroll
-        for (int q = 0; q < NU; ++q) b = fmaf(lux[q * LD + e], p[q], b);
+        for (int q = 0; q < NU; ++q) b = fmaf(lux[q * NX + e], p[q], b);
         olx[node * NX + e] = (set[CostSet::kLx + e] + a) + b;
         float v;
         if (e < NC) {
@@ -611,23 +688,24 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
         } else {
           v = 0.0f;
 #pragma unroll
-          for (int q = 0; q < NV; ++q) v = fmaf(P[q * LDP + e - NC], lup[NC + q], v);
+          for (int q = 0; q < NV; ++q) v = fmaf(P[q * NV + e - NC], lup[NC + q], v);
         }
         olu[node * NU + e] = v;
       }
     }
+    fence_proxy_async();  // this thread's outputs, before the bulk stores read them
     __syncthreads(); PHASE(2);
 
-    // --- lxx_bar, luu_bar, lux_bar to HBM, coalesced float4 --------------------
-    constexpr int kQuads = NX * NX / 4;
-    for (int e = tid; e < 3 * kQuads; e += kThreads) {
-      const int m = e / kQuads, k = e - m * kQuads;
-      float* const out = m == 0 ? olxx : (m == 1 ? oluu : olux);
-      reinterpret_cast<float4*>(out + node * NX * NX)[k] =
-          reinterpret_cast<const float4*>(o_lxx + m * NX * NX)[k];
+    // --- lxx_bar, luu_bar, lux_bar to HBM: three bulk stores -------------------
+    if (tid == 0) {
+      bulk_store(olxx + node * NX * NX, o_lxx, NX * NX * 4);
+      bulk_store(oluu + node * NU * NU, o_luu, NU * NU * 4);
+      bulk_store(olux + node * NU * NX, o_lux, NU * NX * 4);
+      bulk_commit();
     }
     PHASE(3);
   }
+  if (tid == 0) bulk_wait_read();  // shared memory outlives the last stores' reads
   PHASE_CLOCKS_STORE(done)
 }
 
@@ -688,15 +766,23 @@ extern "C" int qm_lq_project_cost_f32(const float* lx, const float* lu, const fl
 #else
   if (!(aligned(lxx_bar, 16) && aligned(luu_bar, 16) && aligned(lux_bar, 16)))
     return (int)cudaErrorInvalidValue;
-  const bool al8 = aligned(lx, 8) && aligned(lu, 8) && aligned(lxx, 8) && aligned(luu, 8) &&
-                   aligned(lux, 8) && aligned(p, 8) && aligned(P, 8) && aligned(Px_v, 8) &&
-                   aligned(fm, 8);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      project_cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kCostSmemBytes);
+  // bulk copies need 16-byte aligned inputs (every node's block of each is a
+  // multiple of 16 bytes, so the base decides); else 4-byte cp.async
+  const bool bulk = aligned(lxx, 16) && aligned(luu, 16) && aligned(lux, 16) &&
+                    aligned(P, 16) && aligned(Px_v, 16) && aligned(fm, 16);
+  const void* fn = bulk ? (const void*)project_cost_kernel<true>
+                        : (const void*)project_cost_kernel<false>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kCostSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
-  project_cost_kernel<<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
-      lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
-      lux_bar, nodes, al8, clocks);
+  if (bulk)
+    project_cost_kernel<true><<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
+        lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
+        lux_bar, nodes, clocks);
+  else
+    project_cost_kernel<false><<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
+        lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
+        lux_bar, nodes, clocks);
 #endif
   return (int)cudaGetLastError();
 }

@@ -115,12 +115,13 @@ def project_grid(nodes: int, sms: int, blocks_per_sm: int) -> int:
 _sms: dict = {}
 
 
-def launch_grid(kernel: str, nodes: int, device) -> int:
-    """:func:`project_grid` on ``device``'s SM count."""
+def launch_grid(kernel: str, nodes: int, device, blocks_per_sm=None) -> int:
+    """:func:`project_grid` on ``device``'s SM count (``blocks_per_sm`` for
+    a measuring build with another block shape)."""
     sms = _sms.get(device)
     if sms is None:
         sms = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return project_grid(nodes, sms, BLOCKS_PER_SM[kernel])
+    return project_grid(nodes, sms, blocks_per_sm or BLOCKS_PER_SM[kernel])
 
 
 def project_fn(kernel: str, defines=()):
