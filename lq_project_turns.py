@@ -34,10 +34,10 @@ SHIFT = 1e-5
 KERNELS = {"K3a": "project_geom_kernel", "K3b": "project_cost_kernel"}
 # measuring builds of each kernel beside "new" and "scalar": name ->
 # (defines, blocks an SM its __launch_bounds__ asks for)
-VARIANTS = {"K3a": {},
-            "K3b": {"cost_unroll18": (("QM_LQ_COST_UNROLL=18",), 4),
-                    "cost_unroll2": (("QM_LQ_COST_UNROLL=2",), 4),
-                    "cost_blocks3": (("QM_LQ_COST_BLOCKS=3",), 3)}}
+VARIANTS = {"K3a": {"geom_blocks4": (("QM_LQ_GEOM_BLOCKS=4",), 4),
+                    "geom_blocks6": (("QM_LQ_GEOM_BLOCKS=6",), 6)},
+            "K3b": {"cost_blocks4": (("QM_LQ_COST_BLOCKS=4",), 4),
+                    "cost_unroll3": (("QM_LQ_COST_UNROLL=3",), 5)}}
 
 
 def registers(report, kernel):
@@ -49,6 +49,14 @@ def registers(report, kernel):
         elif current and "Used" in line and "registers" in line:
             out[current] = int(line.split("Used")[1].split("registers")[0])
     return out
+
+
+def instance(name):
+    """"bulk" or "cp.async4" for a mangled project_*_kernel<kBulk> name,
+    "pr2" for the PR 2 kernels (no template)."""
+    if "kernelILb" not in name:
+        return "pr2"
+    return "bulk" if name.split("kernelILb")[1][0] == "1" else "cp.async4"
 
 
 def inputs(Bb, N, pattern, seed, dev):
@@ -89,9 +97,8 @@ def main():
     ptxas = {}
     for defines, report in reports.items():
         name = " ".join(("lq_project",) + defines)
-        ptxas[name] = {kid: {"registers": list(registers(report, k).values()),
-                             "spill_stores": list(kernel_spills(report, k).values())}
-                       for kid, k in KERNELS.items()}
+        ptxas[name] = {kid: {instance(f): {"registers": r, "spill_stores": kernel_spills(
+            report, k)[f]} for f, r in registers(report, k).items()} for kid, k in KERNELS.items()}
     log(json.dumps({"ptxas": ptxas}))
     result = {"ptxas": ptxas}
 

@@ -69,6 +69,8 @@ constexpr int NC = 12;
 constexpr int NW = 1 + NX + NV;  // right-hand sides [g0 | Gx | Gv]
 constexpr int LDM = NC | 1;      // odd row stride of M
 
+#ifdef QM_LQ_SCALAR_PRODUCTS  // the measuring build: the PR 2 kernels
+
 __global__ void __launch_bounds__(kThreads)
 project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
                     const float* __restrict__ gd, const float* __restrict__ gg0,
@@ -197,8 +199,6 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
   PHASE(5);
   PHASE_CLOCKS_STORE(1)
 }
-
-#ifdef QM_LQ_SCALAR_PRODUCTS  // the measuring build: the PR 2 kernel
 
 __global__ void __launch_bounds__(kThreads)
 project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu,
@@ -346,14 +346,16 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
   PHASE_CLOCKS_STORE(1)
 }
 
-#else  // the normal build: K3b on register tiles
+#else  // the normal build: K3a and K3b on register tiles
 
 // K3b's block shape: 128 threads, one node at a time, looping over the
 // nodes in a grid of (SMs x kCostBlocks) blocks (ops/lq.py:project_grid).
 // -DQM_LQ_COST_BLOCKS and -DQM_LQ_COST_UNROLL (the unroll of a tile's sum)
-// are measuring builds (lq_project_turns.py); the normal build is 4 and 6.
+// are measuring builds (lq_project_turns.py); the normal build is 5 and 6:
+// 5 blocks of 42.4 KB fill an SM's shared memory, at 96 registers and no
+// spills, and beat 4 by 13% (NVIDIA H100 80GB HBM3, 700 W).
 #ifndef QM_LQ_COST_BLOCKS
-#define QM_LQ_COST_BLOCKS 4
+#define QM_LQ_COST_BLOCKS 5
 #endif
 #ifndef QM_LQ_COST_UNROLL
 #define QM_LQ_COST_UNROLL 6
@@ -452,11 +454,11 @@ __device__ __forceinline__ void tile46(const float* A, int lda, const float* B, 
 // One node's inputs in shared memory, each as it lies in HBM (a set; two
 // sets, node after node), every buffer 16-byte aligned.
 struct CostSet {
-  static constexpr int kLuu = 0, kLux = kLuu + NU * NU, kLxx = kLux + NU * NX,
-                       kPx = kLxx + NX * NX, kP = kPx + NV * NX, kFm = kP + NV * NV,
-                       kLx = kFm + NC, kLu = kLx + 32, kp = kLu + 32, kFloats = kp + 32;
-  // bytes of the bulk-copied inputs (luu, lux, lxx, Px_v, P, fm)
-  static constexpr unsigned kBulkBytes = (3 * NX * NX + NV * NX + NV * NV + NC) * 4;
+  static constexpr int kLuu = 0, kLux = kLuu + NU * NU, kPx = kLux + NU * NX,
+                       kP = kPx + NV * NX, kFm = kP + NV * NV, kLx = kFm + NC, kLu = kLx + 32,
+                       kp = kLu + 32, kFloats = kp + 32;
+  // bytes of the bulk-copied inputs (luu, lux, Px_v, P, fm)
+  static constexpr unsigned kBulkBytes = (2 * NX * NX + NV * NX + NV * NV + NC) * 4;
 };
 // The buffers every node shares, after the two sets.
 struct CostShared {
@@ -465,39 +467,39 @@ struct CostShared {
       kTV = kT1 + NV * NX,                         // lux_v + luu_v^T Px, 18 x 30
       kPVVT = kTV + NV * NX,                       // luu_vv^T P, 18 x 18
       kLup = kPVVT + NV * NV,                      // lu + luu^T p, 32
-      kOut = kLup + 32,                            // lxx_bar, luu_bar, lux_bar: 3 x 900
-      kBar = kOut + 3 * NX * NX,                   // two mbarriers, one a set
-      kFloats = kBar + 4;
+      kOut = kLup + 32,                            // lxx (then lxx_bar), luu_bar, lux_bar
+      kBar = kOut + 3 * NX * NX,                   // mbarriers: one a set, one for lxx
+      kFloats = kBar + 8;
 };
 constexpr size_t kCostSmemBytes = CostShared::kFloats * sizeof(float);
 
 // Set off node `node`'s copies into `set`: with kBulk (every input 16-byte
-// aligned) thread 0 issues one bulk copy an input (luu, lux, lxx, Px_v, P,
-// fm: whole multiples of 16 bytes a node) on the set's mbarrier; otherwise
+// aligned) thread 0 issues one bulk copy an input (luu, lux, Px_v, P, fm:
+// whole multiples of 16 bytes a node) on the set's mbarrier; otherwise
 // the block copies them with 4-byte cp.async. The 30-float vectors (lx,
 // lu, p: 120 bytes, not 16-byte aligned on odd nodes) always go by 4-byte
 // cp.async, one float a thread.
 template <bool kBulk>
 __device__ __forceinline__ void stage_cost_node(float* set, uint64_t* bar, const float* glx,
-                                                const float* glu, const float* glxx,
-                                                const float* gluu, const float* glux,
+                                                const float* glu, const float* gluu,
+                                                const float* glux,
                                                 const float* gp, const float* gP,
                                                 const float* gPx, const float* gfm,
                                                 size_t node, int tid) {
-  const float* src[6] = {gluu + node * NU * NU, glux + node * NU * NX, glxx + node * NX * NX,
-                         gPx + node * NV * NX, gP + node * NV * NV, gfm + node * NC};
-  constexpr int kDst[6] = {CostSet::kLuu, CostSet::kLux, CostSet::kLxx,
-                           CostSet::kPx, CostSet::kP, CostSet::kFm};
-  constexpr int kCount[6] = {NU * NU, NU * NX, NX * NX, NV * NX, NV * NV, NC};
+  const float* src[5] = {gluu + node * NU * NU, glux + node * NU * NX, gPx + node * NV * NX,
+                         gP + node * NV * NV, gfm + node * NC};
+  constexpr int kDst[5] = {CostSet::kLuu, CostSet::kLux, CostSet::kPx, CostSet::kP,
+                           CostSet::kFm};
+  constexpr int kCount[5] = {NU * NU, NU * NX, NV * NX, NV * NV, NC};
   if constexpr (kBulk) {
     if (tid == 0) {
       mbar_expect(bar, CostSet::kBulkBytes);
 #pragma unroll
-      for (int m = 0; m < 6; ++m) bulk_load(set + kDst[m], src[m], 4 * kCount[m], bar);
+      for (int m = 0; m < 5; ++m) bulk_load(set + kDst[m], src[m], 4 * kCount[m], bar);
     }
   } else {
 #pragma unroll
-    for (int m = 0; m < 6; ++m)
+    for (int m = 0; m < 5; ++m)
       for (int e = tid; e < kCount[m]; e += kThreads)
         chol_warp::cp_async4(set + kDst[m] + e, src[m] + e);
   }
@@ -523,6 +525,8 @@ __device__ __forceinline__ void stage_cost_node(float* set, uint64_t* bar, const
 //     luu_bar's joint block PVVT^T P + ((1 + shift) I - P) (15 tiles);
 //     luu_bar's force block, lx_bar, lu_bar (48 threads);
 //   then lxx_bar, luu_bar, lux_bar leave shared memory as three bulk stores.
+// lxx is read once, into its own sum: it is copied straight into lxx_bar's
+// buffer at the node's start and summed there in place.
 // Every product is 18 deep. Tile rows and columns past an operand's end
 // (the 4 x 6 grid's padding) read neighbouring shared memory and are never
 // stored.
@@ -534,7 +538,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
                     const float* __restrict__ gP, const float* __restrict__ gPx,
                     const float* __restrict__ gfm, float shift, float* __restrict__ olx,
                     float* __restrict__ olu, float* __restrict__ olxx,
-                    float* __restrict__ oluu, float* __restrict__ olux, long long nodes,
+                    float* __restrict__ oluu, float* __restrict__ olux, unsigned nodes,
                     long long* clocks) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
@@ -552,13 +556,13 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
   if (kBulk && tid == 0) {
     mbar_init(bars);
     mbar_init(bars + 1);
+    mbar_init(bars + 2);
   }
   __syncthreads();
-  stage_cost_node<kBulk>(sm, bars, glx, glu, glxx, gluu, glux, gp, gP, gPx, gfm, blockIdx.x,
-                         tid);
-  long long done = 0;
-  for (long long n = blockIdx.x; n < nodes; n += gridDim.x, ++done) {
-    const size_t node = (size_t)n;
+  stage_cost_node<kBulk>(sm, bars, glx, glu, gluu, glux, gp, gP, gPx, gfm, blockIdx.x, tid);
+  unsigned done = 0;
+  for (unsigned n = blockIdx.x; n < nodes; n += gridDim.x, ++done) {
+    const size_t node = n;
     const int s = (int)(done & 1);
     const float* const set = sm + s * CostSet::kFloats;
     const float* const luu = set + CostSet::kLuu;
@@ -567,12 +571,24 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
     const float* const P = set + CostSet::kP;
     const float* const fm = set + CostSet::kFm;
     chol_warp::cp_async_wait<0>();  // this thread's 4-byte copies of this node
-    if constexpr (kBulk) mbar_wait(bars + s, (unsigned)(done >> 1) & 1u);  // the bulk copies
+    if constexpr (kBulk) mbar_wait(bars + s, (done >> 1) & 1u);  // the bulk copies
     if (tid == 0) bulk_wait_read();  // the last node's outputs have left shared memory
     __syncthreads();                 // the other set and the outputs are free
+    // this node's lxx, straight into lxx_bar's buffer (free once the last
+    // node's stores have read it), arrives during phase 1
+    if constexpr (kBulk) {
+      if (tid == 0) {
+        mbar_expect(bars + 2, NX * NX * 4);
+        bulk_load(o_lxx, glxx + node * NX * NX, NX * NX * 4, bars + 2);
+      }
+    } else {
+      for (int e = tid; e < NX * NX; e += kThreads)
+        chol_warp::cp_async4(o_lxx + e, glxx + node * NX * NX + e);
+      chol_warp::cp_async_commit();
+    }
     if (n + gridDim.x < nodes)
-      stage_cost_node<kBulk>(sm + (1 - s) * CostSet::kFloats, bars + 1 - s, glx, glu, glxx,
-                             gluu, glux, gp, gP, gPx, gfm, node + gridDim.x, tid);
+      stage_cost_node<kBulk>(sm + (1 - s) * CostSet::kFloats, bars + 1 - s, glx, glu, gluu,
+                             glux, gp, gP, gPx, gfm, node + gridDim.x, tid);
     PHASE(0);
 
     // --- phase 1: Y = luu_v^T [Px_v | P], X = Px_v^T lux_v, lup ----------------
@@ -623,14 +639,15 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
         lup[e] = set[CostSet::kLu + e] + acc;
       }
     }
+    if constexpr (!kBulk) chol_warp::cp_async_wait<0>();  // lxx (and the next node's copies)
     __syncthreads(); PHASE(1);
 
     // --- phase 2: lxx_bar, lux_bar's joint rows, luu_bar, lx_bar, lu_bar -------
     if (tid < 40) {
       const int ti = tid / 5, tj = tid - 5 * (tid / 5);
-      const float* const lxx = set + CostSet::kLxx;
       float acc[4][6];
       tile46<NV>(Px + 4 * ti, NX, T1 + 6 * tj, NX, acc);
+      if constexpr (kBulk) mbar_wait(bars + 2, done & 1u);  // lxx
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = 4 * ti + u;
@@ -638,7 +655,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 #pragma unroll
         for (int v = 0; v < 6; ++v) {
           const int c = 6 * tj + v;
-          o_lxx[r * NX + c] = ((lxx[r * NX + c] + X[r * NX + c]) + X[c * NX + r]) + acc[u][v];
+          o_lxx[r * NX + c] = ((o_lxx[r * NX + c] + X[r * NX + c]) + X[c * NX + r]) + acc[u][v];
         }
       }
     } else if (tid < 65) {
@@ -709,6 +726,295 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
   PHASE_CLOCKS_STORE(done)
 }
 
+
+// --- K3a ----------------------------------------------------------------------
+
+// K3a's block shape: 128 threads, one node at a time, looping over the
+// nodes in a grid of (SMs x kGeomBlocks) blocks; -DQM_LQ_GEOM_BLOCKS and
+// -DQM_LQ_GEOM_UNROLL are measuring builds (lq_project_turns.py). The
+// normal build, 5 blocks (96 registers) with the sums unrolled 3 steps, is
+// the widest that does not spill; it beats 4 blocks by 18% (NVIDIA H100
+// 80GB HBM3, 700 W), and 6 blocks spill.
+#ifndef QM_LQ_GEOM_BLOCKS
+#define QM_LQ_GEOM_BLOCKS 5
+#endif
+#ifndef QM_LQ_GEOM_UNROLL
+#define QM_LQ_GEOM_UNROLL 3
+#endif
+constexpr int kGeomBlocks = QM_LQ_GEOM_BLOCKS;
+constexpr int kGeomUnroll = QM_LQ_GEOM_UNROLL;  // steps of tile26's sum, and of -Gv^T w's rows
+constexpr int kNP = 16;  // the 12 x 12 Gram padded to chol_warp.cuh's NP = 16
+
+// acc[u][v] = sum_{q < kDepth} A[u * lda + q] * Y[q * ldy + v] (u < 2, v < 6):
+// a 2 x 6 register tile of A Y with A by rows, summed in q's order. Two
+// steps of the sum read one float2 of each A row and three float2 of each Y
+// row (8-byte aligned, kDepth even) for 24 FMAs.
+template <int kDepth>
+__device__ __forceinline__ void tile26(const float* A, int lda, const float* Y, int ldy,
+                                       float (&acc)[2][6]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int v = 0; v < 6; ++v) acc[u][v] = 0.0f;
+#pragma unroll kGeomUnroll
+  for (int q = 0; q < kDepth; q += 2) {
+    float a[2][2], y[2][6];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float2 t = *reinterpret_cast<const float2*>(A + u * lda + q);
+      a[u][0] = t.x;
+      a[u][1] = t.y;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        const float2 t = *reinterpret_cast<const float2*>(Y + (q + h) * ldy + 2 * w);
+        y[h][2 * w] = t.x;
+        y[h][2 * w + 1] = t.y;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 6; ++v) acc[u][v] = fmaf(a[u][h], y[h][v], acc[u][v]);
+  }
+}
+
+// One node's inputs (a set; two sets, node after node), each as it lies in
+// HBM, every buffer 16-byte aligned.
+struct GeomSet {
+  static constexpr int kA = 0, kB = kA + NX * NX, kGx = kB + NX * NU, kGv = kGx + NC * NX,
+                       kg0 = kGv + NC * NV, kFb = kg0 + 16, kAct = kFb + 16, kFm = kAct + 16,
+                       kd = kFm + 16, kFloats = kd + 32;
+  // bytes of the bulk-copied inputs (A, B, Gx, Gv, g0, F_bar, act, fm)
+  static constexpr unsigned kBulkBytes = (2 * NX * NX + NC * NX + NC * NV + 4 * NC) * 4;
+};
+// L's two copies first (float4 reads), then the two sets, then the buffers
+// every node shares: the outputs staged for their bulk stores and p.
+struct GeomShared {
+  static constexpr int kLt = 0, kL = kNP * kNP, kSets = chol_warp::factor_floats<kNP>(),
+                       kA = kSets + 2 * GeomSet::kFloats,  // A_bar, 30 x 30
+      kB = kA + NX * NX,                                   // B_bar, 30 x 30
+      kPx = kB + NX * NU,                                  // Px_v, 18 x 30
+      kP = kPx + NV * NX,                                  // P, 18 x 18
+      kp = kP + NV * NV,                                   // p, 30
+      kBar = kp + 32, kFloats = kBar + 4;
+};
+constexpr size_t kGeomSmemBytes = GeomShared::kFloats * sizeof(float);
+
+// Set off node `node`'s copies into `set`, as stage_cost_node: the 16-byte
+// multiples (A, B, Gx, Gv and the 12-float g0, F_bar, act, fm) by bulk copy
+// or 4-byte cp.async, d by 4-byte cp.async.
+template <bool kBulk>
+__device__ __forceinline__ void stage_geom_node(float* set, uint64_t* bar, const float* gA,
+                                                const float* gB, const float* gd,
+                                                const float* gg0, const float* gGx,
+                                                const float* gGv, const float* gFb,
+                                                const float* gact, const float* gfm,
+                                                size_t node, int tid) {
+  const float* src[8] = {gA + node * NX * NX, gB + node * NX * NU, gGx + node * NC * NX,
+                         gGv + node * NC * NV, gg0 + node * NC, gFb + node * NC,
+                         gact + node * NC, gfm + node * NC};
+  constexpr int kDst[8] = {GeomSet::kA, GeomSet::kB, GeomSet::kGx, GeomSet::kGv,
+                           GeomSet::kg0, GeomSet::kFb, GeomSet::kAct, GeomSet::kFm};
+  constexpr int kCount[8] = {NX * NX, NX * NU, NC * NX, NC * NV, NC, NC, NC, NC};
+  if constexpr (kBulk) {
+    if (tid == 0) {
+      mbar_expect(bar, GeomSet::kBulkBytes);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) bulk_load(set + kDst[m], src[m], 4 * kCount[m], bar);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      for (int e = tid; e < kCount[m]; e += kThreads)
+        chol_warp::cp_async4(set + kDst[m] + e, src[m] + e);
+  }
+  if (tid < NX) chol_warp::cp_async4(set + GeomSet::kd + tid, gd + node * NX + tid);
+  chol_warp::cp_async_commit();
+}
+
+// Per node, with the TPU kernel's arithmetic (pallas_lq.py:_project_geom_kernel):
+//   phase 1, on chol_warp.cuh's NP = 16 register-lean routines: warp 0's
+//     lane i < 12 forms row i of M = Gv Gv^T + diag(1 - act) in registers
+//     (its own Gv row held, the others read as broadcasts), factors it
+//     (factor_lean: pivots rsqrt(max(., 1e-30))) and stores L; then the 49
+//     columns of W = M^-1 [g0 | Gx | Gv], one a thread of warps 0 and 1
+//     (warp 1 waits for L at a 64-thread named barrier), each solved in
+//     registers (solve_lean) and turned into its output column: -Gv^T w
+//     (p_v, Px_v) or e_j - Gv^T w (P), 12 deep;
+//   warps 1-3 first: B_bar's force block B_F diag(fm), p's force part
+//     -(1 - fm) F_bar;
+//   phase 2, 120 2 x 6 tiles of B_v [Px_v | P] (30 x 48, 18 deep): A_bar =
+//     A + B_v Px_v and B_bar's joint block B_v P; 8 threads d_bar = d + B p;
+//   then A_bar, B_bar, P, Px_v leave shared memory as four bulk stores, p
+//   and d_bar as plain stores.
+template <bool kBulk>
+__global__ void __launch_bounds__(kThreads, kGeomBlocks)
+project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
+                    const float* __restrict__ gd, const float* __restrict__ gg0,
+                    const float* __restrict__ gGx, const float* __restrict__ gGv,
+                    const float* __restrict__ gFb, const float* __restrict__ gact,
+                    const float* __restrict__ gfm, float* __restrict__ oA,
+                    float* __restrict__ oB, float* __restrict__ od, float* __restrict__ op,
+                    float* __restrict__ oP, float* __restrict__ oPx, unsigned nodes,
+                    long long* clocks) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  PHASE_CLOCKS_START
+  float* const sLt = sm + GeomShared::kLt;
+  float* const sL = sm + GeomShared::kL;
+  float* const o_A = sm + GeomShared::kA;
+  float* const o_B = sm + GeomShared::kB;
+  float* const o_Px = sm + GeomShared::kPx;
+  float* const o_P = sm + GeomShared::kP;
+  float* const p = sm + GeomShared::kp;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(sm + GeomShared::kBar);
+  float* const sets = sm + GeomShared::kSets;
+
+  if (kBulk && tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+  }
+  __syncthreads();
+  stage_geom_node<kBulk>(sets, bars, gA, gB, gd, gg0, gGx, gGv, gFb, gact, gfm, blockIdx.x, tid);
+  unsigned done = 0;
+  for (unsigned n = blockIdx.x; n < nodes; n += gridDim.x, ++done) {
+    const size_t node = n;
+    const int s = (int)(done & 1);
+    const float* const set = sets + s * GeomSet::kFloats;
+    const float* const A = set + GeomSet::kA;
+    const float* const B = set + GeomSet::kB;
+    const float* const Gv = set + GeomSet::kGv;
+    const float* const fm = set + GeomSet::kFm;
+    chol_warp::cp_async_wait<0>();
+    if constexpr (kBulk) mbar_wait(bars + s, (done >> 1) & 1u);
+    if (tid == 0) bulk_wait_read();
+    __syncthreads();
+    if (n + gridDim.x < nodes)
+      stage_geom_node<kBulk>(sets + (1 - s) * GeomSet::kFloats, bars + 1 - s, gA, gB, gd, gg0,
+                             gGx, gGv, gFb, gact, gfm, node + gridDim.x, tid);
+    PHASE(0);
+
+    // --- phase 1: the projector (warps 0, 1); B_bar's force block, p_F (1-3) --
+    if (warp == 0) {
+      float a[kNP];
+      {
+        const float* const act = set + GeomSet::kAct;
+        const bool real = lane < NC;
+        float g[NV];
+#pragma unroll
+        for (int q = 0; q < NV; ++q) g[q] = real ? Gv[lane * NV + q] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < kNP; ++j) {
+          float acc = 0.0f;
+          if (j < NC) {
+#pragma unroll
+            for (int q = 0; q < NV; ++q) acc = fmaf(g[q], Gv[j * NV + q], acc);
+          }
+          float v = (real && j <= lane) ? acc : 0.0f;
+          if (j == lane) v = real ? v + (1.0f - act[lane]) : 1.0f;
+          a[j] = v;
+        }
+      }
+      PHASE(1);
+      float ivd = 0.0f;
+      chol_warp::factor_lean<kNP>(a, ivd, lane);
+      PHASE(2);
+      chol_warp::store_factor_lean<kNP>(a, ivd, sLt, sL, lane);
+      asm volatile("bar.arrive 1, 64;\n" ::: "memory");  // L is there for warp 1
+      __syncwarp();
+    } else {
+      const float* const Fb = set + GeomSet::kFb;
+      for (int e = tid - 32; e < NX * NC; e += kThreads - 32) {
+        const int i = e / NC, j = e - i * NC;
+        o_B[i * NU + j] = B[i * NU + j] * fm[j];
+      }
+      if (tid - 32 < NC) p[tid - 32] = -(1.0f - fm[tid - 32]) * Fb[tid - 32];
+      if (warp == 1) asm volatile("bar.sync 1, 64;\n" ::: "memory");  // warp 0's L
+    }
+    if (warp < 2) {
+      // lane c of warp w solves column k = 32 w + c of W = M^-1 [g0 | Gx | Gv]
+      // and turns it into column k - 1 of Px_v (-Gv^T w), k - 31 of P
+      // (e_j - Gv^T w) or, for k = 0, p_v (-Gv^T w)
+      const int k = tid;
+      if (k < NW) {
+        const float* const g0 = set + GeomSet::kg0;
+        const float* const Gx = set + GeomSet::kGx;
+        float z[kNP];
+#pragma unroll
+        for (int r = 0; r < kNP; ++r) {
+          float v = 0.0f;
+          if (r < NC) v = k == 0 ? g0[r] : (k <= NX ? Gx[r * NX + k - 1] : Gv[r * NV + k - 1 - NX]);
+          z[r] = v;
+        }
+        chol_warp::solve_lean<kNP>(z, sLt, sL);
+        PHASE(3);
+        float* const dst = k == 0 ? p + NC : (k <= NX ? o_Px + k - 1 : o_P + k - 1 - NX);
+        const int stride = k == 0 ? 1 : (k <= NX ? NX : NV);
+        const int diag = k > NX ? k - 1 - NX : -1;
+#pragma unroll kGeomUnroll
+        for (int i = 0; i < NV; i += 2) {
+          float acc0 = 0.0f, acc1 = 0.0f;
+#pragma unroll
+          for (int r = 0; r < NC; ++r) {
+            const float2 gv = *reinterpret_cast<const float2*>(Gv + r * NV + i);
+            acc0 = fmaf(gv.x, z[r], acc0);
+            acc1 = fmaf(gv.y, z[r], acc1);
+          }
+          dst[i * stride] = (i == diag ? 1.0f : 0.0f) - acc0;
+          dst[(i + 1) * stride] = (i + 1 == diag ? 1.0f : 0.0f) - acc1;
+        }
+        PHASE(4);
+      }
+    }
+    __syncthreads();
+
+    // --- phase 2: A_bar, B_bar's joint block, d_bar; the stores ---------------
+    if (tid < 120) {
+      const int ti = tid >> 3, tj = tid & 7;  // rows 2 ti..; 6 tj.. of [Px_v | P]
+      const bool onP = tj >= 5;
+      const int c0 = onP ? 6 * (tj - 5) : 6 * tj;
+      float acc[2][6];
+      tile26<NV>(B + 2 * ti * NU + NC, NU, onP ? o_P + c0 : o_Px + c0, onP ? NV : NX, acc);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = 2 * ti + u;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) {
+          if (onP)
+            o_B[r * NU + NC + c0 + v] = acc[u][v];
+          else
+            o_A[r * NX + c0 + v] = A[r * NX + c0 + v] + acc[u][v];
+        }
+      }
+    } else {
+      const float* const d = set + GeomSet::kd;
+      for (int i = tid - 120; i < NX; i += kThreads - 120) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < NU; ++q) acc = fmaf(B[i * NU + q], p[q], acc);
+        od[node * NX + i] = d[i] + acc;
+        op[node * NU + i] = p[i];
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      bulk_store(oA + node * NX * NX, o_A, NX * NX * 4);
+      bulk_store(oB + node * NX * NU, o_B, NX * NU * 4);
+      bulk_store(oPx + node * NV * NX, o_Px, NV * NX * 4);
+      bulk_store(oP + node * NV * NV, o_P, NV * NV * 4);
+      bulk_commit();
+    }
+    PHASE(5);
+  }
+  if (tid == 0) bulk_wait_read();
+  PHASE_CLOCKS_STORE(done)
+}
+
 #endif  // QM_LQ_SCALAR_PRODUCTS
 
 // The node count and, for a kernel that loops over nodes, its grid:
@@ -740,8 +1046,29 @@ extern "C" int qm_lq_project_geom_f32(const float* A, const float* B, const floa
                                       void* stream, long long* clocks) {
   const int err = launch_check(nodes, blocks);
   if (err != 0 || nodes == 0) return err;
+#ifdef QM_LQ_SCALAR_PRODUCTS
   project_geom_kernel<<<(unsigned)nodes, kThreads, 0, (cudaStream_t)stream>>>(
       A, B, d, g0, Gx, Gv, F_bar, act, fm, A_bar, B_bar, d_bar, p, P, Px_v, clocks);
+#else
+  if (!(aligned(A_bar, 16) && aligned(B_bar, 16) && aligned(P, 16) && aligned(Px_v, 16)))
+    return (int)cudaErrorInvalidValue;
+  const bool bulk = aligned(A, 16) && aligned(B, 16) && aligned(Gx, 16) && aligned(Gv, 16) &&
+                    aligned(g0, 16) && aligned(F_bar, 16) && aligned(act, 16) &&
+                    aligned(fm, 16);
+  const void* fn = bulk ? (const void*)project_geom_kernel<true>
+                        : (const void*)project_geom_kernel<false>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGeomSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  if (bulk)
+    project_geom_kernel<true><<<blocks, kThreads, kGeomSmemBytes, (cudaStream_t)stream>>>(
+        A, B, d, g0, Gx, Gv, F_bar, act, fm, A_bar, B_bar, d_bar, p, P, Px_v, (unsigned)nodes,
+        clocks);
+  else
+    project_geom_kernel<false><<<blocks, kThreads, kGeomSmemBytes, (cudaStream_t)stream>>>(
+        A, B, d, g0, Gx, Gv, F_bar, act, fm, A_bar, B_bar, d_bar, p, P, Px_v, (unsigned)nodes,
+        clocks);
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -778,11 +1105,11 @@ extern "C" int qm_lq_project_cost_f32(const float* lx, const float* lu, const fl
   if (bulk)
     project_cost_kernel<true><<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
         lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
-        lux_bar, nodes, clocks);
+        lux_bar, (unsigned)nodes, clocks);
   else
     project_cost_kernel<false><<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
         lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,
-        lux_bar, nodes, clocks);
+        lux_bar, (unsigned)nodes, clocks);
 #endif
   return (int)cudaGetLastError();
 }

@@ -99,7 +99,7 @@ _PROJECT_ARGTYPES = {
 }
 # blocks an SM each kernel's __launch_bounds__ asks for (kGeomBlocksPerSm,
 # kCostBlocksPerSm in csrc/lq_project.cu): its grid is one wave of them
-BLOCKS_PER_SM = {"geom": 4, "cost": 4}
+BLOCKS_PER_SM = {"geom": 5, "cost": 5}
 
 
 def project_grid(nodes: int, sms: int, blocks_per_sm: int) -> int:
