@@ -35,7 +35,13 @@ Phases:
       port on the GPU in f32 against the port on the CPU in f64
       (max|dX| <= 2e-5, max|dU| <= 2.5e-3 N).
   (d) kernels of the other LQ backends, on (b)'s own warm-iterate data at
-      B = 384, N = 67: K2 (fused backward sweep), K3a/K3b (projection),
+      B = 384, N = 67: K2 (fused backward sweep), K3a/K3b (projection;
+      each also timed in turns (scalar, new, new, scalar) against the
+      measuring build of its PR 2 kernel, -DQM_LQ_SCALAR_PRODUCTS, with
+      both builds' per-phase clock64() cycles a node, and held through its
+      wrapper to 1e-4 of f64 on seeded inputs of every fm/act pattern:
+      all-stance, all-swing, a mix, act rows off; 7 x 67 nodes, one node,
+      and misaligned inputs),
       K3c (backward sweep), K3d (forward rollout), each against its plain
       version in f64 on the same inputs (pass: relative max error <= 1e-4
       for K3a/K3b, <= 1e-3 for the sweeps; the plain f32 error printed
@@ -57,6 +63,9 @@ Phases:
       mean violation <= 1e-5), their LQ stage's host ms and device busy
       ms at (b)'s iterate and its max|dX|, |dU| difference from bm_k1 there,
       and (c)'s cross-precision check for each.
+  (f) backends in mirrored pairs: bm_k1, bm_fused, lq_fused, lq_fused,
+      bm_fused, bm_k1, 5 steps each on the problems (b) and (e) built, host
+      ms a step of each turn and each backend's mean.
 
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]}; the last line
@@ -174,17 +183,22 @@ def spd_batch(rng, batch, n, m):
 
 
 def build_all():
-    """Build every kernel source of qm_door_torch/csrc and the diagnostic
-    build of the sweep kernel, one nvcc each, all started together; log each
-    one's ptxas report (kept from the build when a library is reused) and
-    fail unless it shows the four K1 register kernels and the four sweep
-    kernels (K2/K3c x reg/smem) of the normal build without spills. The
-    phase-clock build's spills are logged: its cycle counts carry them."""
+    """Build every kernel source of qm_door_torch/csrc, the diagnostic build
+    of the sweep kernel and the measuring and diagnostic builds of K3a/K3b,
+    one nvcc each, all started together; log each one's ptxas report (kept
+    from the build when a library is reused) and fail unless it shows the
+    four K1 register kernels, the four sweep kernels (K2/K3c x reg/smem) and
+    the four K3a/K3b kernels (x bulk/4-byte copies) of the normal build
+    without spills. The phase-clock builds' spills are logged: their cycle
+    counts carry them."""
     from qm_door_torch.ops import cuda_build
+    from qm_door_torch.ops import lq
     from qm_door_torch.ops import riccati_fused
 
     libs = [(n[:-3], ()) for n in sorted(os.listdir(cuda_build.CSRC)) if n.endswith(".cu")]
     libs += [("riccati_bwd", (riccati_fused.PHASE_CLOCKS,))]
+    libs += [("lq_project", LQ_BUILDS["scalar"])]
+    libs += [("lq_project", d + (lq.PHASE_CLOCKS,)) for d in LQ_BUILDS.values()]
     t0 = time.time()
     with ThreadPoolExecutor(len(libs)) as pool:
         outs = list(pool.map(lambda lib: cuda_build.build(*lib), libs))
@@ -193,12 +207,20 @@ def build_all():
         for line in out.splitlines():
             log(f"nvcc {' -D'.join((name,) + defines)}: {line}")
     for label, lib, kernel in (("K1 register variants", ("spd_solve", ()), "spd_reg_kernel"),
-                               ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel")):
+                               ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel"),
+                               ("K3a/K3b kernels", ("lq_project", ()), "project_")):
         spills = kernel_spills(outs[libs.index(lib)], kernel)
         log(f"{label}, bytes of spill stores: {json.dumps(spills)}")
         if len(spills) != 4 or any(spills.values()):
             raise RuntimeError(f"{label}: expected 4 kernels without spills, "
                                f"ptxas reports {spills}")
+    for build, defines in LQ_BUILDS.items():
+        out = outs[libs.index(("lq_project", defines + (lq.PHASE_CLOCKS,)))]
+        LQ_CLOCK_SPILLS[build] = {name.split("_kernel")[0].split("project_")[-1]
+                                  + ("" if "ILb" not in name else
+                                     "_bulk" if "ILb1" in name else "_cp.async4"): v
+                                  for name, v in kernel_spills(out, "project_").items()}
+    log(f"K3a/K3b phase-clock builds, bytes of spill stores: {json.dumps(LQ_CLOCK_SPILLS)}")
     clock_spills = kernel_spills(
         outs[libs.index(("riccati_bwd", (riccati_fused.PHASE_CLOCKS,)))], "riccati_bwd_kernel")
     SWEEP_CLOCK_SPILLS.update({sweep_instance(k): v for k, v in clock_spills.items()})
@@ -206,6 +228,9 @@ def build_all():
 
 
 SWEEP_CLOCK_SPILLS = {}  # the phase-clock build's spills, noted beside its readings
+LQ_CLOCK_SPILLS = {}     # the same for K3a/K3b's phase-clock builds, by build
+# K3a/K3b's builds: the normal one and the PR 2 kernels (a measuring build)
+LQ_BUILDS = {"new": (), "scalar": ("QM_LQ_SCALAR_PRODUCTS",)}
 
 
 def sweep_instance(name):
@@ -884,6 +909,70 @@ def sweep_turns(row, args, ref, symmetrize, reps=20):
         "phase_cycles_per_node", "phase_clock_build_spills")}))
 
 
+def projection_turns(row, args, shift, reps=50):
+    """K3a or K3b (row["id"]) against the measuring build of the PR 2 kernel
+    on the same inputs: each timed in turns (scalar, new, new, scalar) in
+    chained calls, `ms` the normal build's mean and `ms_scalar` the PR 2
+    kernel's; both builds' phase clocks a node."""
+    kid = row["id"]
+    calls = {b: lq_project_call(kid, d, args, shift) for b, d in LQ_BUILDS.items()}
+    turns = {}
+    for i, build in enumerate(("scalar", "new", "new", "scalar")):
+        turns[f"{build}_{i}"] = cuda_ms(calls[build], reps=reps)
+    mean = lambda b: float(np.mean([t for k, t in turns.items() if k.startswith(b)]))  # noqa: E731
+    row.update(ms=mean("new"), ms_scalar=mean("scalar"), ms_turns=turns,
+               phase_cycles_per_node={b: lq_phases(kid, d, args, shift)
+                                      for b, d in LQ_BUILDS.items()},
+               phase_clock_build_spills=LQ_CLOCK_SPILLS)
+    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in (
+        "ms", "ms_scalar", "ms_turns", "phase_cycles_per_node", "phase_clock_build_spills")}))
+
+
+# (Bb, N, inputs one float past an aligned base) of the seeded projection
+# checks: a random mix of every pattern at 7 x 67 nodes, one node, and the
+# 4-byte copies that stand in for the bulk copies on misaligned inputs
+PROJECTION_CASES = ((7, 67, False), (1, 1, False), (3, 5, True))
+
+
+def check_projection_patterns(dev, shift):
+    """(d) K3a and K3b through their wrappers on seeded inputs of every
+    fm/act pattern (PROJECTION_PATTERNS) in each of PROJECTION_CASES, each
+    within PROJECTION_REL_TOL of the f64 plain version."""
+    import torch
+
+    from qm_door_torch.ops import lq as tl
+
+    def misaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    checks = {}
+    for i, pattern in enumerate(PROJECTION_PATTERNS):
+        for Bb, N, off in PROJECTION_CASES:
+            geom, cost = projection_data(Bb, N, pattern, 1000 + 10 * i + Bb)
+            g64 = [torch.tensor(t, device=dev) for t in geom]
+            ref_geom = tl.project_geom_plain(*g64)
+            c64 = [torch.tensor(t, device=dev) for t in cost] + list(ref_geom[3:]) + [g64[-1]]
+            ref_cost = tl.project_cost_plain(*c64, shift=shift)
+            for kid, wrapper, args, ref, kw in (("K3a", tl.project_geom, g64, ref_geom, {}),
+                                                ("K3b", tl.project_cost, c64, ref_cost,
+                                                 {"shift": shift})):
+                label = f"{kid} {pattern} {Bb}x{N}{' misaligned' if off else ''}"
+                f32 = [t.float().contiguous() for t in args]
+                before = wrapper.launches
+                outs = wrapper(*[misaligned(t) for t in f32] if off else f32, **kw)
+                torch.cuda.synchronize()
+                rel, _ = rel_err(outs, ref)
+                if wrapper.launches != before + 1:
+                    raise RuntimeError(f"{label}: the wrapper did not launch its kernel")
+                if not (rel <= PROJECTION_REL_TOL and np.isfinite(rel)):
+                    raise RuntimeError(f"{label}: relative error {rel:.3e} > {PROJECTION_REL_TOL}")
+                checks[label] = rel
+    log(f"[d] K3a/K3b on every fm/act pattern (relative error): ok {json.dumps(checks)}")
+
+
 def phase_new_kernels(dev, main):
     """(d) K2, K3a-d on (b)'s warm-iterate data and K1-ll, each against its
     plain version in f64; timed beside its bound; the refusals."""
@@ -928,6 +1017,9 @@ def phase_new_kernels(dev, main):
         "K3b", "project_cost", shifted(tl.project_cost), shifted(tl.project_cost_plain),
         cost_args, tl.project_cost_plain(*f64(cost_args), shift=shift), PROJECTION_REL_TOL,
         4 * B * N * floats, B * N * fl, reps=50)
+    projection_turns(rows["K3a"], geom_args, shift)
+    projection_turns(rows["K3b"], cost_args, shift)
+    check_projection_patterns(dev, shift)
     bwd_args = [A_bar, B_bar, d_bar, lxb, lub, lxxb, luub, luxb, c(lq.lxx_f), c(lq.lx_f)]
     ref = tl.riccati_backward_ll_plain(*f64(bwd_args))
     rows["K3c"], (K, kff) = kernel_row(
@@ -1021,9 +1113,9 @@ def phase_backends(dev, main):
                 lq, cons.velocity_row_mask(flags), torch.repeat_interleave(flags, 3, dim=-1),
                 U[:, :, :12], dx0, shift=shift)},
     }
-    launches, by_variant = {}, {}
+    launches, by_variant, runs = {}, {}, {}
     for backend, fns in stages.items():
-        run = drive(dev, backend, "e")
+        run = runs[backend] = drive(dev, backend, "e")
         stage_ms, device = {}, {}
         timed = timer(stage_ms, device)
         for name, fn in fns.items():
@@ -1041,7 +1133,35 @@ def phase_backends(dev, main):
         launches.update({k: v for k, v in run["launches"].items() if v})
         by_variant.update({kid: counts for kid, counts in run["sweep_variants"].items()
                            if run["launches"][kid]})
-    return launches, by_variant
+    return launches, by_variant, runs
+
+
+PAIR_ORDER = ("bm_k1", "bm_fused", "lq_fused", "lq_fused", "bm_fused", "bm_k1")
+PAIR_STEPS = 5
+
+
+def phase_pairs(runs):
+    """(f) the three backends' steps in mirrored pairs (PAIR_ORDER), on the
+    problems (b) and (e) built: each turn PAIR_STEPS steps from its
+    backend's final iterate there, host clock around work that ends in
+    torch.cuda.synchronize()."""
+    import torch
+
+    step_ms = {backend: [] for backend in runs}
+    for backend in PAIR_ORDER:
+        run = runs[backend]
+        mpc, stage, x_batch, X, U = (run[k] for k in ("mpc", "stage", "x_batch", "X", "U"))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(PAIR_STEPS):
+            X, U, _ = mpc.step(stage, x_batch, X, U)
+        torch.cuda.synchronize()
+        step_ms[backend].append((time.time() - t0) / PAIR_STEPS * 1e3)
+    mean = {backend: float(np.mean(t)) for backend, t in step_ms.items()}
+    row = {"order": PAIR_ORDER, "steps_a_turn": PAIR_STEPS, "step_ms": step_ms,
+           "step_ms_mean": mean,
+           "solves_per_s_mean": {backend: BATCH * 1e3 / t for backend, t in mean.items()}}
+    log("[f] " + json.dumps(row))
 
 
 def phase_cross_precision(dev, backend="bm_k1", tag="c"):
@@ -1109,7 +1229,8 @@ def main():
     main_path = phase_main_path(dev)
     phase_cross_precision(dev)
     new_rows = phase_new_kernels(dev, main_path)
-    path_launches, sweep_by_variant = phase_backends(dev, main_path)
+    path_launches, sweep_by_variant, backend_runs = phase_backends(dev, main_path)
+    phase_pairs({"bm_k1": main_path["run"], **backend_runs})
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -1144,6 +1265,9 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None, "rel_err": r["rel_err"],
             "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
             "flops": r["flops"]})
+        if kid in ("K3a", "K3b"):  # (d)'s PR 2 kernel in turns and both builds' clocks
+            kernels[-1].update({k: r[k] for k in (
+                "ms_scalar", "ms_turns", "phase_cycles_per_node", "phase_clock_build_spills")})
         if kid in sweep_by_variant:  # K2, K3c: the (e) run's launches by variant, and (d)'s
             kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",

@@ -16,18 +16,27 @@
 // ms at 3.35 TB/s) for ~94 kflop (~0.036 ms at 67 TFLOP/s); K3b moves 6,426
 // floats a node (~661 MB, ~0.197 ms) for ~200 kflop (~0.077 ms).
 //
-// Design: one block of 128 threads per node (K1's projection pattern with
-// the substitution products fused in), 12.6 KB (K3a) / 19.8 KB (K3b) of
-// shared memory, so a dozen blocks share an SM and keep its loads in
-// flight. The operands that are read many times (B, Gv, W, P, Px_v, luu,
-// lux, ...) are staged in shared memory with coalesced loads; those read
-// once (A, d, lx, lxx) stream from HBM straight into the output sums. Each
-// product is one output entry per thread, consecutive threads on
-// consecutive columns. The 12 x 12 Cholesky runs in one warp (lanes across
-// rows, the same rsqrt(max(., 1e-30)) pivots), the 49 substitutions one
-// thread per right-hand side. Outputs are written once, coalesced. No batch
-// padding, no lanes-last layout, no transposed copies of B or Gv: the
-// kernel reads B and Gv as they are.
+// What held the PR 2 kernels (one 128-thread block a node, one output
+// entry a thread, both operands of every FMA read from shared memory) was
+// the SM's shared-memory pipe and, in K3a, a serial 12 x 12 factor and 49
+// substitutions out of shared memory (their phase clocks: PERF.md, PR 6).
+// Design now, for both kernels: 128-thread blocks, 5 an SM, each looping
+// over the nodes (grid = SMs x 5, ops/lq.py:project_grid) with two buffer
+// sets: the next node's inputs arrive while this one computes, each input
+// as one bulk copy (cp.async.bulk, the TMA's 1-D form) on the set's
+// mbarrier (4-byte cp.async where an input is not 16-byte aligned, and for
+// the 30-float vectors, 120 bytes a node). Every product is a register
+// tile (4 x 6 or 2 x 6 outputs a thread, float2 fragments, 24 FMAs for 5
+// or 8 shared-memory reads), each distinct product computed once. Outputs
+// are staged in shared memory and leave as bulk stores. K3a factors and
+// solves on chol_warp.cuh's NP = 16 register routines (the kernels' notes
+// below). Pure f32 on the CUDA cores, no tensor cores. No batch padding,
+// no lanes-last layout, no transposed copies of B or Gv.
+//
+// Builds: -DQM_LQ_SCALAR_PRODUCTS compiles the PR 2 kernels instead (a
+// measuring build: chip_smoke.py (d) and lq_project_turns.py time the two
+// in turns; nothing at run time chooses it); -DQM_LQ_PHASE_CLOCKS adds the
+// phase clocks to either.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,9 +76,10 @@ constexpr int NU = 30;
 constexpr int NV = 18;
 constexpr int NC = 12;
 constexpr int NW = 1 + NX + NV;  // right-hand sides [g0 | Gx | Gv]
-constexpr int LDM = NC | 1;      // odd row stride of M
 
 #ifdef QM_LQ_SCALAR_PRODUCTS  // the measuring build: the PR 2 kernels
+
+constexpr int LDM = NC | 1;  // odd row stride of M
 
 __global__ void __launch_bounds__(kThreads)
 project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,

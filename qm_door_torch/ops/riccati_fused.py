@@ -1,9 +1,10 @@
 """K2: the whole backward Riccati sweep in one launch (port of
 ``qm_door_tpu/ops/pallas_riccati.py:riccati_backward_fused``).
 
-The CUDA kernel is ``qm_door_torch/csrc/riccati_bwd.cu``: one 256-thread
-block per scenario keeps the carry (S, s) in shared memory over the N nodes
-and writes only K and kff back; the source note has the bound and the
+The CUDA kernel is ``qm_door_torch/csrc/riccati_bwd.cu``: one block per
+scenario (128 threads on the ``reg`` variant the solver's path runs, 256 on
+the ``smem`` variant) keeps the carry (S, s) in shared memory over the N
+nodes and writes only K and kff back; the source note has the bound and the
 design. The same kernel, compiled without the input symmetrization, is K3c
 (``ops/lq.py:riccati_backward_ll``), so the sweep's launch and its plain
 version live here and serve both.
