@@ -216,9 +216,7 @@ def build_all():
                                f"ptxas reports {spills}")
     for build, defines in LQ_BUILDS.items():
         out = outs[libs.index(("lq_project", defines + (lq.PHASE_CLOCKS,)))]
-        LQ_CLOCK_SPILLS[build] = {name.split("_kernel")[0].split("project_")[-1]
-                                  + ("" if "ILb" not in name else
-                                     "_bulk" if "ILb1" in name else "_cp.async4"): v
+        LQ_CLOCK_SPILLS[build] = {lq_instance(name): v
                                   for name, v in kernel_spills(out, "project_").items()}
     log(f"K3a/K3b phase-clock builds, bytes of spill stores: {json.dumps(LQ_CLOCK_SPILLS)}")
     clock_spills = kernel_spills(
@@ -253,6 +251,27 @@ def kernel_spills(ptxas_out, kernel):
                 spills[current] = int(line.split("bytes spill stores")[0].split(",")[-1])
             current = None
     return spills
+
+
+def kernel_registers(ptxas_out, kernel):
+    """Registers of each instantiation of `kernel` in a ptxas -v report."""
+    out, current = {}, None
+    for line in ptxas_out.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if kernel in line else None
+        elif current and "Used" in line and "registers" in line:
+            out[current] = int(line.split("Used")[1].split("registers")[0])
+    return out
+
+
+def lq_instance(name):
+    """"geom_bulk", "cost_cp.async4", ... for a mangled
+    project_<geom|cost>_kernel<kBulk> name; "geom", "cost" for the PR 2
+    kernels (no template)."""
+    kind = name.split("_kernel")[0].split("project_")[-1]
+    if "kernelILb" not in name:
+        return kind
+    return f"{kind}_{'bulk' if name.split('kernelILb')[1][0] == '1' else 'cp.async4'}"
 
 
 def launch_counters():

@@ -26,37 +26,16 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 from chip_smoke import (PROJECTION_PATTERNS, PROJECTION_REL_TOL, card_line, cuda_ms,
-                        kernel_spills, log, lq_phases, lq_project_call, projection_data,
-                        rel_err)
+                        kernel_registers, kernel_spills, log, lq_instance, lq_phases,
+                        lq_project_call, projection_data, rel_err)
 
 PATH = (384, 67)
 SHIFT = 1e-5
-KERNELS = {"K3a": "project_geom_kernel", "K3b": "project_cost_kernel"}
 # measuring builds of each kernel beside "new" and "scalar": name ->
 # (defines, blocks an SM its __launch_bounds__ asks for)
 VARIANTS = {"K3a": {"geom_blocks4": (("QM_LQ_GEOM_BLOCKS=4",), 4),
                     "geom_blocks6": (("QM_LQ_GEOM_BLOCKS=6",), 6)},
-            "K3b": {"cost_blocks4": (("QM_LQ_COST_BLOCKS=4",), 4),
-                    "cost_unroll3": (("QM_LQ_COST_UNROLL=3",), 5)}}
-
-
-def registers(report, kernel):
-    """{instantiation: registers} of `kernel` in a ptxas -v report."""
-    out, current = {}, None
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            current = line.split("'")[1] if kernel in line else None
-        elif current and "Used" in line and "registers" in line:
-            out[current] = int(line.split("Used")[1].split("registers")[0])
-    return out
-
-
-def instance(name):
-    """"bulk" or "cp.async4" for a mangled project_*_kernel<kBulk> name,
-    "pr2" for the PR 2 kernels (no template)."""
-    if "kernelILb" not in name:
-        return "pr2"
-    return "bulk" if name.split("kernelILb")[1][0] == "1" else "cp.async4"
+            "K3b": {"cost_blocks4": (("QM_LQ_COST_BLOCKS=4",), 4)}}
 
 
 def inputs(Bb, N, pattern, seed, dev):
@@ -97,8 +76,9 @@ def main():
     ptxas = {}
     for defines, report in reports.items():
         name = " ".join(("lq_project",) + defines)
-        ptxas[name] = {kid: {instance(f): {"registers": r, "spill_stores": kernel_spills(
-            report, k)[f]} for f, r in registers(report, k).items()} for kid, k in KERNELS.items()}
+        spills = kernel_spills(report, "project_")
+        ptxas[name] = {lq_instance(f): {"registers": r, "spill_stores": spills[f]}
+                       for f, r in kernel_registers(report, "project_").items()}
     log(json.dumps({"ptxas": ptxas}))
     result = {"ptxas": ptxas}
 

@@ -360,18 +360,15 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 
 // K3b's block shape: 128 threads, one node at a time, looping over the
 // nodes in a grid of (SMs x kCostBlocks) blocks (ops/lq.py:project_grid).
-// -DQM_LQ_COST_BLOCKS and -DQM_LQ_COST_UNROLL (the unroll of a tile's sum)
-// are measuring builds (lq_project_turns.py); the normal build is 5 and 6:
-// 5 blocks of 42.4 KB fill an SM's shared memory, at 96 registers and no
-// spills, and beat 4 by 13% (NVIDIA H100 80GB HBM3, 700 W).
+// -DQM_LQ_COST_BLOCKS is a measuring build (lq_project_turns.py); the normal
+// build's 5 blocks of 42.4 KB fill an SM's shared memory, at 96 registers
+// and no spills, and beat 4 by 13% (NVIDIA H100 80GB HBM3, 700 W). A tile's
+// sum is unrolled 6 steps (3 and 18 measured 1–2% slower, 18 spilling).
 #ifndef QM_LQ_COST_BLOCKS
 #define QM_LQ_COST_BLOCKS 5
 #endif
-#ifndef QM_LQ_COST_UNROLL
-#define QM_LQ_COST_UNROLL 6
-#endif
 constexpr int kCostBlocks = QM_LQ_COST_BLOCKS;
-constexpr int kUnroll = QM_LQ_COST_UNROLL;
+constexpr int kUnroll = 6;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -740,19 +737,16 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 // --- K3a ----------------------------------------------------------------------
 
 // K3a's block shape: 128 threads, one node at a time, looping over the
-// nodes in a grid of (SMs x kGeomBlocks) blocks; -DQM_LQ_GEOM_BLOCKS and
-// -DQM_LQ_GEOM_UNROLL are measuring builds (lq_project_turns.py). The
-// normal build, 5 blocks (96 registers) with the sums unrolled 3 steps, is
-// the widest that does not spill; it beats 4 blocks by 18% (NVIDIA H100
-// 80GB HBM3, 700 W), and 6 blocks spill.
+// nodes in a grid of (SMs x kGeomBlocks) blocks; -DQM_LQ_GEOM_BLOCKS is a
+// measuring build (lq_project_turns.py). The normal build's 5 blocks (96
+// registers) are the widest that do not spill, with its sums unrolled 3
+// steps; they beat 4 blocks by 18% (NVIDIA H100 80GB HBM3, 700 W), and 6
+// blocks spill.
 #ifndef QM_LQ_GEOM_BLOCKS
 #define QM_LQ_GEOM_BLOCKS 5
 #endif
-#ifndef QM_LQ_GEOM_UNROLL
-#define QM_LQ_GEOM_UNROLL 3
-#endif
 constexpr int kGeomBlocks = QM_LQ_GEOM_BLOCKS;
-constexpr int kGeomUnroll = QM_LQ_GEOM_UNROLL;  // steps of tile26's sum, and of -Gv^T w's rows
+constexpr int kGeomUnroll = 3;  // steps of tile26's sum, and of -Gv^T w's rows
 constexpr int kNP = 16;  // the 12 x 12 Gram padded to chol_warp.cuh's NP = 16
 
 // acc[u][v] = sum_{q < kDepth} A[u * lda + q] * Y[q * ldy + v] (u < 2, v < 6):

@@ -26,8 +26,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from chip_smoke import (SWEEP_REL_TOL, card_line, cuda_ms, kernel_spills, log, rel_err,
-                        sweep_data, sweep_instance)
+from chip_smoke import (SWEEP_REL_TOL, card_line, cuda_ms, kernel_registers, kernel_spills,
+                        log, rel_err, sweep_data, sweep_instance)
 
 NORMAL = ()  # 128 threads, 3 blocks an SM, loads a node ahead
 SHAPES = {"128x3": NORMAL, "128x3_sync_loads": ("QM_SWEEP_SYNC_LOADS",),
@@ -36,18 +36,6 @@ SHAPES = {"128x3": NORMAL, "128x3_sync_loads": ("QM_SWEEP_SYNC_LOADS",),
           "224x3": ("QM_SWEEP_REG_THREADS=224", "QM_SWEEP_REG_BLOCKS=3"),
           "256x3": ("QM_SWEEP_REG_THREADS=256", "QM_SWEEP_REG_BLOCKS=3")}
 PATH_SHAPE = (384, 67, 30, 30)
-
-
-def registers(report):
-    """{instantiation: registers} of each riccati_bwd_kernel in a ptxas -v
-    report."""
-    out, current = {}, None
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            current = line.split("'")[1] if "riccati_bwd_kernel" in line else None
-        elif current and "Used" in line and "registers" in line:
-            out[current] = int(line.split("Used")[1].split("registers")[0])
-    return out
 
 
 def sweep(defines, variant, args, symmetrize):
@@ -87,7 +75,8 @@ def main():
                                             SHAPES.values())))
     ptxas = {}
     for shape, report in reports.items():
-        spills, regs = kernel_spills(report, "riccati_bwd_kernel"), registers(report)
+        spills = kernel_spills(report, "riccati_bwd_kernel")
+        regs = kernel_registers(report, "riccati_bwd_kernel")
         ptxas[shape] = {sweep_instance(k): {"registers": regs[k], "spill_stores": spills[k]}
                         for k in regs}
     log(json.dumps({"ptxas": ptxas}))
