@@ -97,8 +97,9 @@ _PROJECT_ARGTYPES = {
     "cost": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
             + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
 }
-# blocks an SM each kernel's __launch_bounds__ asks for (kGeomBlocksPerSm,
-# kCostBlocksPerSm in csrc/lq_project.cu): its grid is one wave of them
+# blocks an SM each kernel's __launch_bounds__ asks for (the defaults of
+# QM_LQ_GEOM_BLOCKS, QM_LQ_COST_BLOCKS in csrc/lq_project.cu): its grid is
+# one wave of them
 BLOCKS_PER_SM = {"geom": 5, "cost": 5}
 
 
