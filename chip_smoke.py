@@ -37,7 +37,7 @@ Phases:
   (d) kernels of the other LQ backends, on (b)'s own warm-iterate data at
       B = 384, N = 67: K2 (fused backward sweep), K3a/K3b (projection;
       each also timed in turns (scalar, new, new, scalar) against the
-      measuring build of its PR 2 kernel, -DQM_LQ_SCALAR_PRODUCTS, with
+      measuring build of its scalar-product kernel, -DQM_LQ_SCALAR_PRODUCTS, with
       both builds' per-phase clock64() cycles a node, and held through its
       wrapper to 1e-4 of f64 on seeded inputs of every fm/act pattern:
       all-stance, all-swing, a mix, act rows off; 7 x 67 nodes, one node,
@@ -227,7 +227,7 @@ def build_all():
 
 SWEEP_CLOCK_SPILLS = {}  # the phase-clock build's spills, noted beside its readings
 LQ_CLOCK_SPILLS = {}     # the same for K3a/K3b's phase-clock builds, by build
-# K3a/K3b's builds: the normal one and the PR 2 kernels (a measuring build)
+# K3a/K3b's builds: the normal one and the scalar-product kernels (a measuring build)
 LQ_BUILDS = {"new": (), "scalar": ("QM_LQ_SCALAR_PRODUCTS",)}
 
 
@@ -266,7 +266,7 @@ def kernel_registers(ptxas_out, kernel):
 
 def lq_instance(name):
     """"geom_bulk", "cost_cp.async4", ... for a mangled
-    project_<geom|cost>_kernel<kBulk> name; "geom", "cost" for the PR 2
+    project_<geom|cost>_kernel<kBulk> name; "geom", "cost" for the scalar-product
     kernels (no template)."""
     kind = name.split("_kernel")[0].split("project_")[-1]
     if "kernelILb" not in name:
@@ -664,7 +664,7 @@ NODE_COST = {  # (floats moved, flops) per node, nx = nu = 30, 18 joint and 12 f
 
 
 # K3a/K3b's phases, as csrc/lq_project.cu's diagnostic build (-DQM_LQ_PHASE_CLOCKS)
-# counts them, in the normal build ("new") and the PR 2 kernels ("scalar")
+# counts them, in the normal build ("new") and the scalar-product kernels ("scalar")
 LQ_PHASES = {
     ("K3a", "scalar"): ("load", "gram", "factor", "substitutions", "p_P_Px", "A_B_d_bar_stores"),
     ("K3a", "new"): ("load", "gram", "factor", "substitutions", "p_P_Px", "A_B_d_bar_stores"),
@@ -929,9 +929,9 @@ def sweep_turns(row, args, ref, symmetrize, reps=20):
 
 
 def projection_turns(row, args, shift, reps=50):
-    """K3a or K3b (row["id"]) against the measuring build of the PR 2 kernel
+    """K3a or K3b (row["id"]) against the measuring build of its scalar-product kernel
     on the same inputs: each timed in turns (scalar, new, new, scalar) in
-    chained calls, `ms` the normal build's mean and `ms_scalar` the PR 2
+    chained calls, `ms` the normal build's mean and `ms_scalar` the scalar
     kernel's; both builds' phase clocks a node."""
     kid = row["id"]
     calls = {b: lq_project_call(kid, d, args, shift) for b, d in LQ_BUILDS.items()}
@@ -1284,7 +1284,7 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None, "rel_err": r["rel_err"],
             "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
             "flops": r["flops"]})
-        if kid in ("K3a", "K3b"):  # (d)'s PR 2 kernel in turns and both builds' clocks
+        if kid in ("K3a", "K3b"):  # (d)'s scalar build in turns and both builds' clocks
             kernels[-1].update({k: r[k] for k in (
                 "ms_scalar", "ms_turns", "phase_cycles_per_node", "phase_clock_build_spills")})
         if kid in sweep_by_variant:  # K2, K3c: the (e) run's launches by variant, and (d)'s

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the projection kernels K3a (project_geom) and K3b (project_cost)
-against their PR 2 bodies on one NVIDIA GPU, and read their phase clocks.
+against their scalar-product builds on one NVIDIA GPU, and read their phase clocks.
 
     python3 lq_project_turns.py
 
 qm_door_torch/csrc/lq_project.cu compiles, besides its normal build, the
-measuring build -DQM_LQ_SCALAR_PRODUCTS (the PR 2 kernels: one block a
+measuring build -DQM_LQ_SCALAR_PRODUCTS (the scalar-product kernels: one block a
 node, one output entry a thread) and, for either, the diagnostic build
 -DQM_LQ_PHASE_CLOCKS (clock64() cycles a node of each phase). This script
 builds the four and the block-shape variants of VARIANTS (one nvcc each,

@@ -16,10 +16,10 @@
 // ms at 3.35 TB/s) for ~94 kflop (~0.036 ms at 67 TFLOP/s); K3b moves 6,426
 // floats a node (~661 MB, ~0.197 ms) for ~200 kflop (~0.077 ms).
 //
-// What held the PR 2 kernels (one 128-thread block a node, one output
+// What held the scalar-product kernels (one 128-thread block a node, one output
 // entry a thread, both operands of every FMA read from shared memory) was
 // the SM's shared-memory pipe and, in K3a, a serial 12 x 12 factor and 49
-// substitutions out of shared memory (their phase clocks: PERF.md, PR 6).
+// substitutions out of shared memory (their phase clocks: PERF.md §6).
 // Design now, for both kernels: 128-thread blocks, 5 an SM, each looping
 // over the nodes (grid = SMs x 5, ops/lq.py:project_grid) with two buffer
 // sets: the next node's inputs arrive while this one computes, each input
@@ -33,7 +33,7 @@
 // below). Pure f32 on the CUDA cores, no tensor cores. No batch padding,
 // no lanes-last layout, no transposed copies of B or Gv.
 //
-// Builds: -DQM_LQ_SCALAR_PRODUCTS compiles the PR 2 kernels instead (a
+// Builds: -DQM_LQ_SCALAR_PRODUCTS compiles the scalar-product kernels instead (a
 // measuring build: chip_smoke.py (d) and lq_project_turns.py time the two
 // in turns; nothing at run time chooses it); -DQM_LQ_PHASE_CLOCKS adds the
 // phase clocks to either.
@@ -77,7 +77,7 @@ constexpr int NV = 18;
 constexpr int NC = 12;
 constexpr int NW = 1 + NX + NV;  // right-hand sides [g0 | Gx | Gv]
 
-#ifdef QM_LQ_SCALAR_PRODUCTS  // the measuring build: the PR 2 kernels
+#ifdef QM_LQ_SCALAR_PRODUCTS  // the measuring build: the scalar-product kernels
 
 constexpr int LDM = NC | 1;  // odd row stride of M
 

@@ -91,7 +91,7 @@ def _ptrs(tensors):
 # --- K3a, K3b: the builds of csrc/lq_project.cu --------------------------------
 
 PHASE_CLOCKS = "QM_LQ_PHASE_CLOCKS"        # diagnostic build: cycles a phase
-SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the PR 2 kernels
+SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the scalar-product kernels
 _PROJECT_ARGTYPES = {
     "geom": [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
     "cost": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
