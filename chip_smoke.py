@@ -709,12 +709,11 @@ def projection_data(Bb, N, pattern, seed):
     return geom, cost
 
 
-def lq_project_call(kid, defines, args, shift=0.0, clocks=None, blocks_per_sm=None):
+def lq_project_call(kid, defines, args, shift=0.0, clocks=None):
     """A call that launches K3a or K3b from the lq_project build with
     `defines` on CUDA tensors `args` (its wrapper's inputs) into outputs
     allocated once, and returns them; the wrapper's launch counter is not
-    touched. `clocks` (7 int64 on the card) is for the phase-clock build;
-    `blocks_per_sm` sets the grid of a build with another block shape."""
+    touched. `clocks` (7 int64 on the card) is for the phase-clock build."""
     import torch
 
     from qm_door_torch.ops import lq as tl
@@ -725,18 +724,16 @@ def lq_project_call(kid, defines, args, shift=0.0, clocks=None, blocks_per_sm=No
     outs = tuple(torch.empty(*lead, *tail, device=args[0].device)
                  for tail in (tl.GEOM_OUT if geom else tl.COST_OUT))
     nodes = int(np.prod(lead))
-    kernel = "geom" if geom else "cost"
-    fn = tl.project_fn(kernel, defines)
-    blocks = tl.launch_grid(kernel, nodes, args[0].device, blocks_per_sm)
+    fn = tl.project_fn("geom" if geom else "cost", defines)
     stream = torch.cuda.current_stream(args[0].device).cuda_stream
     ptrs = lambda ts: [t.data_ptr() for t in ts]  # noqa: E731
     clk = None if clocks is None else clocks.data_ptr()
 
     def call():
         if geom:
-            err = fn(*ptrs(args), *ptrs(outs), nodes, blocks, stream, clk)
+            err = fn(*ptrs(args), *ptrs(outs), nodes, stream, clk)
         else:
-            err = fn(*ptrs(args), float(shift), *ptrs(outs), nodes, blocks, stream, clk)
+            err = fn(*ptrs(args), float(shift), *ptrs(outs), nodes, stream, clk)
         check_launch(f"{kid} build {defines}", err)
         return outs
 
@@ -929,34 +926,46 @@ def sweep_turns(row, args, ref, symmetrize, reps=20):
 
 
 def projection_turns(row, args, shift, reps=50):
-    """K3a or K3b (row["id"]) against the measuring build of its scalar-product kernel
-    on the same inputs: each timed in turns (scalar, new, new, scalar) in
-    chained calls, `ms` the normal build's mean and `ms_scalar` the scalar
-    kernel's; both builds' phase clocks a node."""
+    """K3a or K3b (row["id"]) against the measuring build of its scalar-product
+    kernel on the same inputs, both launched straight through the C entry
+    point into outputs allocated once (the scalar build has no wrapper),
+    timed in turns (scalar, new, new, scalar) in chained calls:
+    `ms_new_turns` and `ms_scalar_turns` are the two builds' means. `ms`
+    stays kernel_row's time through the wrapper. Both builds' phase clocks
+    a node."""
     kid = row["id"]
     calls = {b: lq_project_call(kid, d, args, shift) for b, d in LQ_BUILDS.items()}
     turns = {}
     for i, build in enumerate(("scalar", "new", "new", "scalar")):
         turns[f"{build}_{i}"] = cuda_ms(calls[build], reps=reps)
     mean = lambda b: float(np.mean([t for k, t in turns.items() if k.startswith(b)]))  # noqa: E731
-    row.update(ms=mean("new"), ms_scalar=mean("scalar"), ms_turns=turns,
+    row.update(ms_new_turns=mean("new"), ms_scalar_turns=mean("scalar"), ms_turns=turns,
                phase_cycles_per_node={b: lq_phases(kid, d, args, shift)
                                       for b, d in LQ_BUILDS.items()},
                phase_clock_build_spills=LQ_CLOCK_SPILLS)
-    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in (
-        "ms", "ms_scalar", "ms_turns", "phase_cycles_per_node", "phase_clock_build_spills")}))
+    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in LQ_TURN_KEYS}))
+
+
+# what projection_turns adds to K3a's and K3b's rows
+LQ_TURN_KEYS = ("ms_new_turns", "ms_scalar_turns", "ms_turns", "phase_cycles_per_node",
+                "phase_clock_build_spills")
 
 
 # (Bb, N, inputs one float past an aligned base) of the seeded projection
 # checks: a random mix of every pattern at 7 x 67 nodes, one node, and the
 # 4-byte copies that stand in for the bulk copies on misaligned inputs
 PROJECTION_CASES = ((7, 67, False), (1, 1, False), (3, 5, True))
+# K3b's second shift in those checks: at the path's shift (~1e-5) a kernel
+# that dropped or doubled the shift on either diagonal block would stay
+# within PROJECTION_REL_TOL; at 1.0 it misses it by orders of magnitude
+UNIT_SHIFT = 1.0
 
 
 def check_projection_patterns(dev, shift):
     """(d) K3a and K3b through their wrappers on seeded inputs of every
     fm/act pattern (PROJECTION_PATTERNS) in each of PROJECTION_CASES, each
-    within PROJECTION_REL_TOL of the f64 plain version."""
+    within PROJECTION_REL_TOL of the f64 plain version; K3b at `shift` and
+    again at UNIT_SHIFT."""
     import torch
 
     from qm_door_torch.ops import lq as tl
@@ -974,11 +983,13 @@ def check_projection_patterns(dev, shift):
             g64 = [torch.tensor(t, device=dev) for t in geom]
             ref_geom = tl.project_geom_plain(*g64)
             c64 = [torch.tensor(t, device=dev) for t in cost] + list(ref_geom[3:]) + [g64[-1]]
-            ref_cost = tl.project_cost_plain(*c64, shift=shift)
-            for kid, wrapper, args, ref, kw in (("K3a", tl.project_geom, g64, ref_geom, {}),
-                                                ("K3b", tl.project_cost, c64, ref_cost,
-                                                 {"shift": shift})):
+            cases = [("K3a", tl.project_geom, g64, ref_geom, {})]
+            cases += [("K3b", tl.project_cost, c64, tl.project_cost_plain(*c64, shift=s),
+                       {"shift": s}) for s in (shift, UNIT_SHIFT)]
+            for kid, wrapper, args, ref, kw in cases:
                 label = f"{kid} {pattern} {Bb}x{N}{' misaligned' if off else ''}"
+                if kw.get("shift") == UNIT_SHIFT:
+                    label += f" shift {UNIT_SHIFT}"
                 f32 = [t.float().contiguous() for t in args]
                 before = wrapper.launches
                 outs = wrapper(*[misaligned(t) for t in f32] if off else f32, **kw)
@@ -1285,8 +1296,7 @@ def main():
             "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
             "flops": r["flops"]})
         if kid in ("K3a", "K3b"):  # (d)'s scalar build in turns and both builds' clocks
-            kernels[-1].update({k: r[k] for k in (
-                "ms_scalar", "ms_turns", "phase_cycles_per_node", "phase_clock_build_spills")})
+            kernels[-1].update({k: r[k] for k in LQ_TURN_KEYS})
         if kid in sweep_by_variant:  # K2, K3c: the (e) run's launches by variant, and (d)'s
             kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",

@@ -21,7 +21,7 @@
 // the SM's shared-memory pipe and, in K3a, a serial 12 x 12 factor and 49
 // substitutions out of shared memory (their phase clocks: PERF.md §6).
 // Design now, for both kernels: 128-thread blocks, 5 an SM, each looping
-// over the nodes (grid = SMs x 5, ops/lq.py:project_grid) with two buffer
+// over the nodes (grid = SMs x 5, node_loop_grid below) with two buffer
 // sets: the next node's inputs arrive while this one computes, each input
 // as one bulk copy (cp.async.bulk, the TMA's 1-D form) on the set's
 // mbarrier (4-byte cp.async where an input is not 16-byte aligned, and for
@@ -33,20 +33,21 @@
 // below). Pure f32 on the CUDA cores, no tensor cores. No batch padding,
 // no lanes-last layout, no transposed copies of B or Gv.
 //
-// Builds: -DQM_LQ_SCALAR_PRODUCTS compiles the scalar-product kernels instead (a
-// measuring build: chip_smoke.py (d) and lq_project_turns.py time the two
-// in turns; nothing at run time chooses it); -DQM_LQ_PHASE_CLOCKS adds the
-// phase clocks to either.
+// Builds: -DQM_LQ_SCALAR_PRODUCTS compiles the scalar-product kernels instead
+// (a measuring build: chip_smoke.py (d) times the two in turns; nothing at
+// run time chooses it); -DQM_LQ_PHASE_CLOCKS adds the phase clocks to
+// either; -DQM_LQ_GEOM_BLOCKS, -DQM_LQ_COST_BLOCKS set the blocks an SM
+// (lq_launch_shapes.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chol_warp.cuh"
 
-// Diagnostic build (-DQM_LQ_PHASE_CLOCKS, chip_smoke.py phase (d) and
-// lq_project_turns.py): each thread sums the clock64() cycles of the six
-// phases of its nodes; block 0's thread 0 writes its sums and the number of
-// nodes it ran to `clocks`. The normal build compiles PHASE to nothing.
+// Diagnostic build (-DQM_LQ_PHASE_CLOCKS, chip_smoke.py phase (d)): each
+// thread sums the clock64() cycles of the six phases of its nodes; block
+// 0's thread 0 writes its sums and the number of nodes it ran to `clocks`.
+// The normal build compiles PHASE to nothing.
 #ifdef QM_LQ_PHASE_CLOCKS
 #define PHASE(ph)                                \
   {                                              \
@@ -359,8 +360,8 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 #else  // the normal build: K3a and K3b on register tiles
 
 // K3b's block shape: 128 threads, one node at a time, looping over the
-// nodes in a grid of (SMs x kCostBlocks) blocks (ops/lq.py:project_grid).
-// -DQM_LQ_COST_BLOCKS is a measuring build (lq_project_turns.py); the normal
+// nodes in a grid of (SMs x kCostBlocks) blocks (node_loop_grid).
+// -DQM_LQ_COST_BLOCKS is a measuring build (lq_launch_shapes.py); the normal
 // build's 5 blocks of 42.4 KB fill an SM's shared memory, at 96 registers
 // and no spills, and beat 4 by 13% (NVIDIA H100 80GB HBM3, 700 W). A tile's
 // sum is unrolled 6 steps (3 and 18 measured 1–2% slower, 18 spilling).
@@ -738,7 +739,7 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 
 // K3a's block shape: 128 threads, one node at a time, looping over the
 // nodes in a grid of (SMs x kGeomBlocks) blocks; -DQM_LQ_GEOM_BLOCKS is a
-// measuring build (lq_project_turns.py). The normal build's 5 blocks (96
+// measuring build (lq_launch_shapes.py). The normal build's 5 blocks (96
 // registers) are the widest that do not spill, with its sums unrolled 3
 // steps; they beat 4 blocks by 18% (NVIDIA H100 80GB HBM3, 700 W), and 6
 // blocks spill.
@@ -1019,14 +1020,23 @@ project_geom_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
   PHASE_CLOCKS_STORE(done)
 }
 
+// The grid of a kernel that loops over `nodes` > 0 nodes: one wave of
+// `blocks_per_sm` blocks an SM on the current device, never more blocks
+// than nodes. Returns 0 or the CUDA error of reading the SM count.
+int node_loop_grid(long long nodes, int blocks_per_sm, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long slots = (long long)sms * blocks_per_sm;
+  *grid = (int)(nodes < slots ? nodes : slots);
+  return 0;
+}
+
 #endif  // QM_LQ_SCALAR_PRODUCTS
 
-// The node count and, for a kernel that loops over nodes, its grid:
-// 1 <= blocks <= nodes (blocks is read only when nodes > 0).
-int launch_check(long long nodes, int blocks) {
-  if (nodes < 0 || nodes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (nodes > 0 && (blocks < 1 || blocks > nodes)) return (int)cudaErrorInvalidValue;
-  return 0;
+int launch_check(long long nodes) {
+  return nodes < 0 || nodes > 0x7fffffffLL ? (int)cudaErrorInvalidValue : 0;
 }
 
 bool aligned(const void* ptr, unsigned bytes) {
@@ -1038,17 +1048,17 @@ bool aligned(const void* ptr, unsigned bytes) {
 // K3a over `nodes` batch-major nodes: A, B (nodes, 30, 30), d (nodes, 30),
 // g0 (nodes, 12), Gx (nodes, 12, 30), Gv (nodes, 12, 18), F_bar, act, fm
 // (nodes, 12) -> A_bar, B_bar (nodes, 30, 30), d_bar, p (nodes, 30),
-// P (nodes, 18, 18), Px_v (nodes, 18, 30). `blocks` is the grid of the
-// kernel that loops over nodes (ops/lq.py:project_grid); `clocks` (7 int64,
+// P (nodes, 18, 18), Px_v (nodes, 18, 30). The grid is one block a node
+// in the scalar-product build, else node_loop_grid's; `clocks` (7 int64,
 // or NULL) is written by the phase-clock build only. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a launch it refuses.
 extern "C" int qm_lq_project_geom_f32(const float* A, const float* B, const float* d,
                                       const float* g0, const float* Gx, const float* Gv,
                                       const float* F_bar, const float* act, const float* fm,
                                       float* A_bar, float* B_bar, float* d_bar, float* p,
-                                      float* P, float* Px_v, long long nodes, int blocks,
-                                      void* stream, long long* clocks) {
-  const int err = launch_check(nodes, blocks);
+                                      float* P, float* Px_v, long long nodes, void* stream,
+                                      long long* clocks) {
+  const int err = launch_check(nodes);
   if (err != 0 || nodes == 0) return err;
 #ifdef QM_LQ_SCALAR_PRODUCTS
   project_geom_kernel<<<(unsigned)nodes, kThreads, 0, (cudaStream_t)stream>>>(
@@ -1064,6 +1074,9 @@ extern "C" int qm_lq_project_geom_f32(const float* A, const float* B, const floa
   const cudaError_t attr =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGeomSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
+  int blocks = 0;
+  const int grid_err = node_loop_grid(nodes, kGeomBlocks, &blocks);
+  if (grid_err != 0) return grid_err;
   if (bulk)
     project_geom_kernel<true><<<blocks, kThreads, kGeomSmemBytes, (cudaStream_t)stream>>>(
         A, B, d, g0, Gx, Gv, F_bar, act, fm, A_bar, B_bar, d_bar, p, P, Px_v, (unsigned)nodes,
@@ -1079,16 +1092,15 @@ extern "C" int qm_lq_project_geom_f32(const float* A, const float* B, const floa
 // K3b over `nodes` batch-major nodes: lx, lu (nodes, 30), lxx, luu, lux
 // (nodes, 30, 30), p (nodes, 30), P (nodes, 18, 18), Px_v (nodes, 18, 30),
 // fm (nodes, 12) -> the projected lx, lu, lxx, luu (shift on the diagonal),
-// lux; `blocks` and `clocks` as for K3a. The outputs' bases must be 16-byte
+// lux; the grid and `clocks` as for K3a. The outputs' bases must be 16-byte
 // aligned (the wrapper allocates them); the inputs may have any alignment.
 extern "C" int qm_lq_project_cost_f32(const float* lx, const float* lu, const float* lxx,
                                       const float* luu, const float* lux, const float* p,
                                       const float* P, const float* Px_v, const float* fm,
                                       float shift, float* lx_bar, float* lu_bar,
                                       float* lxx_bar, float* luu_bar, float* lux_bar,
-                                      long long nodes, int blocks, void* stream,
-                                      long long* clocks) {
-  const int err = launch_check(nodes, blocks);
+                                      long long nodes, void* stream, long long* clocks) {
+  const int err = launch_check(nodes);
   if (err != 0 || nodes == 0) return err;
 #ifdef QM_LQ_SCALAR_PRODUCTS
   project_cost_kernel<<<(unsigned)nodes, kThreads, 0, (cudaStream_t)stream>>>(
@@ -1106,6 +1118,9 @@ extern "C" int qm_lq_project_cost_f32(const float* lx, const float* lu, const fl
   const cudaError_t attr =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kCostSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
+  int blocks = 0;
+  const int grid_err = node_loop_grid(nodes, kCostBlocks, &blocks);
+  if (grid_err != 0) return grid_err;
   if (bulk)
     project_cost_kernel<true><<<blocks, kThreads, kCostSmemBytes, (cudaStream_t)stream>>>(
         lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift, lx_bar, lu_bar, lxx_bar, luu_bar,

@@ -93,45 +93,19 @@ def _ptrs(tensors):
 PHASE_CLOCKS = "QM_LQ_PHASE_CLOCKS"        # diagnostic build: cycles a phase
 SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the scalar-product kernels
 _PROJECT_ARGTYPES = {
-    "geom": [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
+    "geom": [ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
     "cost": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
+            + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
 }
-# blocks an SM each kernel's __launch_bounds__ asks for (the defaults of
-# QM_LQ_GEOM_BLOCKS, QM_LQ_COST_BLOCKS in csrc/lq_project.cu): its grid is
-# one wave of them
-BLOCKS_PER_SM = {"geom": 5, "cost": 5}
-
-
-def project_grid(nodes: int, sms: int, blocks_per_sm: int) -> int:
-    """The grid of K3a or K3b: one block an SM slot, each looping over the
-    nodes blockIdx.x, blockIdx.x + grid, ...; never more blocks than nodes.
-    ``nodes`` >= 1."""
-    if nodes < 1 or sms < 1 or blocks_per_sm < 1:
-        raise ValueError(f"project_grid: nodes = {nodes}, sms = {sms}, "
-                         f"blocks_per_sm = {blocks_per_sm}")
-    return min(nodes, sms * blocks_per_sm)
-
-
-_sms: dict = {}
-
-
-def launch_grid(kernel: str, nodes: int, device, blocks_per_sm=None) -> int:
-    """:func:`project_grid` on ``device``'s SM count (``blocks_per_sm`` for
-    a measuring build with another block shape)."""
-    sms = _sms.get(device)
-    if sms is None:
-        sms = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return project_grid(nodes, sms, blocks_per_sm or BLOCKS_PER_SM[kernel])
 
 
 def project_fn(kernel: str, defines=()):
     """The C entry point of K3a (``kernel="geom"``) or K3b (``"cost"``) from
     the lq_project library built with ``defines``. The wrappers take the
     normal build; ``(PHASE_CLOCKS,)`` and ``(SCALAR_PRODUCTS,)`` are for
-    measuring on the card. Its last arguments are the node count, the grid
-    (:func:`launch_grid`), the stream and ``clocks`` (7 int64 or None),
-    written by the phase-clock build only."""
+    measuring on the card. Its last arguments are the node count, the
+    stream and ``clocks`` (7 int64 or None), written by the phase-clock
+    build only; the entry point sizes its grid itself."""
     key = (f"qm_lq_project_{kernel}_f32", tuple(defines))
     fn = _fns.get(key)
     if fn is None:
@@ -181,8 +155,7 @@ def project_geom(A, B, d, g0, Gx, Gv, F_bar, act, fm):
     if nodes == 0:
         return outs
     with torch.cuda.device(A.device):
-        err = project_fn("geom")(*_ptrs(ins + outs), nodes,
-                                 launch_grid("geom", nodes, A.device), _stream(A), None)
+        err = project_fn("geom")(*_ptrs(ins + outs), nodes, _stream(A), None)
     check_launch("project_geom", err)
     project_geom.launches += 1
     return outs
@@ -232,8 +205,8 @@ def project_cost(lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift: float = 1e-5):
     if nodes == 0:
         return outs
     with torch.cuda.device(lxx.device):
-        err = project_fn("cost")(*_ptrs(ins), float(shift), *_ptrs(outs), nodes,
-                                 launch_grid("cost", nodes, lxx.device), _stream(lxx), None)
+        err = project_fn("cost")(*_ptrs(ins), float(shift), *_ptrs(outs), nodes, _stream(lxx),
+                                 None)
     check_launch("project_cost", err)
     project_cost.launches += 1
     return outs

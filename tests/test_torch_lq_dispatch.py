@@ -1,10 +1,12 @@
 """K3a and K3b (qm_door_torch/ops/lq.py: project_geom, project_cost) around
 their kernels: the bound chip_smoke.py computes (NODE_COST) counts exactly
-what the wrappers read and write, the grid of the kernels' node loops, the
-plain versions on every fm/act pattern of the projection's branches (in f64
-against the JAX kernels in interpret mode, and in f32 against f64), and
-that CPU tensors launch nothing. The kernels themselves run only on the
-card, where chip_smoke.py holds each against the f64 plain version."""
+what the wrappers read and write, the ctypes signatures match the C entry
+points, the plain versions on every fm/act pattern of the projection's
+branches (in f64 against the JAX kernels in interpret mode, and in f32
+against f64, at the path's shift and at a unit shift), and CPU tensors
+launch nothing. The kernels themselves run only on the card, where
+chip_smoke.py holds each against the f64 plain version."""
+import ctypes
 import os
 import re
 
@@ -20,6 +22,7 @@ from torch_parity import to_np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIFT = 1e-5
+UNIT_SHIFT = 1.0
 PROJ = ("A_bar", "B_bar", "d_bar", "lx", "lu", "lxx", "luu", "lux", "p", "P", "Px_v")
 
 
@@ -44,28 +47,30 @@ def test_node_cost_counts_each_input_and_output_once(kid):
     assert [tuple(t.shape[2:]) for t in outs] == list(tails)
 
 
-@pytest.mark.parametrize("nodes, sms, blocks_per_sm, grid", [
-    (1, 132, 5, 1), (7, 132, 5, 7), (659, 132, 5, 659), (660, 132, 5, 660),
-    (384 * 67, 132, 5, 660), (384 * 67, 132, 4, 528), (100, 1, 1, 1)])
-def test_project_grid(nodes, sms, blocks_per_sm, grid):
-    assert tl.project_grid(nodes, sms, blocks_per_sm) == grid
+def _c_params(src, name):
+    """ctypes types of the parameters of `extern "C" int name(...)` in src."""
+    params = re.search(rf"{name}\(([^)]*)\)", src).group(1).split(",")
+    kinds = []
+    for p in params:
+        p = " ".join(p.split())
+        if "*" in p:
+            kinds.append(ctypes.c_void_p)
+        elif p.startswith("long long"):
+            kinds.append(ctypes.c_longlong)
+        elif p.startswith("float"):
+            kinds.append(ctypes.c_float)
+        else:
+            kinds.append(ctypes.c_int)
+    return kinds
 
 
-@pytest.mark.parametrize("args", [(0, 132, 5), (10, 0, 5), (10, 132, 0)])
-def test_project_grid_refuses_an_empty_launch(args):
-    with pytest.raises(ValueError):
-        tl.project_grid(*args)
-
-
-@pytest.mark.parametrize("kernel, define", [("geom", "QM_LQ_GEOM_BLOCKS"),
-                                            ("cost", "QM_LQ_COST_BLOCKS")])
-def test_grid_matches_the_kernels_launch_bounds(kernel, define):
-    """The wrappers size the grid for the blocks an SM that the normal
-    build's __launch_bounds__ asks for."""
+@pytest.mark.parametrize("kernel", ["geom", "cost"])
+def test_ctypes_signature_matches_the_entry_point(kernel):
+    """project_fn's argtypes are the C entry point's parameters, one for one
+    (ctypes cannot check a call against the library)."""
     with open(os.path.join(ROOT, "qm_door_torch", "csrc", "lq_project.cu")) as f:
         src = f.read()
-    default = re.search(rf"#define {define} (\d+)", src)
-    assert default and tl.BLOCKS_PER_SM[kernel] == int(default.group(1))
+    assert _c_params(src, f"qm_lq_project_{kernel}_f32") == tl._PROJECT_ARGTYPES[kernel]
 
 
 @pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
@@ -87,14 +92,14 @@ def test_pattern_data_follows_the_masks(pattern):
     assert (g0[off] == 0).all() and (Gx[off] == 0).all() and (Gv[off] == 0).all()
 
 
-def _jax_project(g, c):
+def _jax_project(g, c, shift=SHIFT):
     """pallas_lq.project_lq in interpret mode on batch-major f64 inputs;
     returns batch-major numpy outputs in the port's order."""
     A, B, d, g0, Gx, Gv, F_bar, act, fm = [jnp.moveaxis(jnp.asarray(to_np(t)), 0, -1) for t in g]
     lx, lu, lxx, luu, lux = [jnp.moveaxis(jnp.asarray(to_np(t)), 0, -1) for t in c[:5]]
     T = lambda x: jnp.transpose(jnp.asarray(to_np(x)), (1, 3, 2, 0))  # noqa: E731
     out = pk.project_lq(A, B, T(g[1]), d, lx, lu, lxx, luu, lux, g0, Gx, Gv, T(g[5]), F_bar,
-                        act, fm, shift=SHIFT, interpret=True, batch_tile=4)
+                        act, fm, shift=shift, interpret=True, batch_tile=4)
     return [np.moveaxis(np.asarray(x), -1, 0) for x in out]
 
 
@@ -104,6 +109,41 @@ def test_plain_versions_match_jax_on_every_pattern(pattern):
     ours = tl.project_lq_plain(*g[:3], *c[:5], *g[3:], shift=SHIFT)
     for name, got, want in zip(PROJ, ours, _jax_project(g, c)):
         np.testing.assert_allclose(to_np(got), want, rtol=1e-8, atol=1e-8, err_msg=name)
+
+
+@pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
+def test_plain_cost_matches_jax_at_a_unit_shift(pattern):
+    """At the path's shift (~1e-5) a missing or doubled shift term hides
+    under the tolerance; at 1.0 it cannot."""
+    g, c = _inputs(pattern, 3, 5, seed=20 + PROJECTION_PATTERNS.index(pattern))
+    ours = tl.project_cost_plain(*c, shift=UNIT_SHIFT)
+    theirs = _jax_project(g, c, shift=UNIT_SHIFT)[3:8]
+    for name, got, want in zip(PROJ[3:8], ours, theirs):
+        np.testing.assert_allclose(to_np(got), want, rtol=1e-8, atol=1e-8, err_msg=name)
+
+
+@pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
+def test_cost_shift_lands_once_on_the_diagonal(pattern):
+    """The shift adds s to each of luu_bar's 30 diagonal entries, the force
+    block's and the joint block's alike, and changes nothing else."""
+    _, c = _inputs(pattern, 2, 3, seed=5)
+    base = tl.project_cost_plain(*c, shift=0.0)
+    shifted = tl.project_cost_plain(*c, shift=UNIT_SHIFT)
+    for i, (b, s) in enumerate(zip(base, shifted)):
+        want = b + UNIT_SHIFT * torch.eye(30, dtype=b.dtype) if i == 3 else b
+        torch.testing.assert_close(s, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
+def test_float32_plain_cost_stays_within_the_bar_at_a_unit_shift(pattern):
+    """chip_smoke.py holds K3b to PROJECTION_REL_TOL at a unit shift too;
+    the f32 arithmetic of the TPU kernel meets that bar there."""
+    _, c = _inputs(pattern, 4, 67, seed=12)
+    ref = tl.project_cost_plain(*c, shift=UNIT_SHIFT)
+    got = tl.project_cost_plain(*[t.float() for t in c], shift=UNIT_SHIFT)
+    for r, o in zip(ref, got):
+        rel = float((o.double() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        assert rel <= PROJECTION_REL_TOL, rel
 
 
 @pytest.mark.parametrize("kid", ["K3a", "K3b"])
