@@ -92,10 +92,13 @@ def _ptrs(tensors):
 
 PHASE_CLOCKS = "QM_LQ_PHASE_CLOCKS"        # diagnostic build: cycles a phase
 SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the scalar-product kernels
-_PROJECT_ARGTYPES = {
-    "geom": [ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
-    "cost": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+# the parameters of this module's C entry points, as ctypes types
+_ARGTYPES = {
+    "qm_lq_project_geom_f32": [ctypes.c_void_p] * 15 + [ctypes.c_longlong]
+                              + [ctypes.c_void_p] * 2,
+    "qm_lq_project_cost_f32": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+                              + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+    "qm_lq_forward_f32": [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -110,7 +113,7 @@ def project_fn(kernel: str, defines=()):
     fn = _fns.get(key)
     if fn is None:
         fn = getattr(load("lq_project", tuple(defines)), key[0])
-        fn.argtypes = _PROJECT_ARGTYPES[kernel]
+        fn.argtypes = _ARGTYPES[key[0]]
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
@@ -295,8 +298,7 @@ def riccati_forward_ll(A, B, d, K, kff, p, P, Px_v, fm, dx0):
     dU = torch.empty(Bb, N, NU, dtype=A.dtype, device=A.device)
     if Bb == 0:
         return dX, dU
-    fn = _c_fn("lq_forward", "qm_lq_forward_f32",
-               [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn = _c_fn("lq_forward", "qm_lq_forward_f32", _ARGTYPES["qm_lq_forward_f32"])
     with torch.cuda.device(A.device):
         err = fn(*_ptrs(ins + (dX, dU)), Bb, N, _stream(A))
     check_launch("riccati_forward_ll", err)

