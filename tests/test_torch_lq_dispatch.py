@@ -4,7 +4,8 @@ what the wrappers read and write, the ctypes signatures match the C entry
 points, the plain versions on every fm/act pattern of the projection's
 branches (in f64 against the JAX kernels in interpret mode, and in f32
 against f64, at the path's shift and at a unit shift), where the shift
-lands, and that CPU tensors launch nothing. The kernels themselves run only on the card, where
+lands and that a wrong one fails chip_smoke.py's unit-shift check, and
+that CPU tensors launch nothing. The kernels themselves run only on the card, where
 chip_smoke.py holds each against the f64 plain version."""
 import ctypes
 import os
@@ -123,6 +124,21 @@ def test_cost_shift_lands_once_on_the_diagonal(pattern):
     for i, (b, s) in enumerate(zip(base, shifted)):
         want = b + UNIT_SHIFT * torch.eye(30, dtype=b.dtype) if i == 3 else b
         torch.testing.assert_close(s, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("block", ["force", "joint"])
+@pytest.mark.parametrize("fault", [-1.0, 1.0])
+def test_a_wrong_shift_fails_the_unit_shift_check(block, fault):
+    """chip_smoke.py's K3b check at UNIT_SHIFT sees a kernel that drops
+    (fault -1) or doubles (fault +1) the shift on either diagonal block:
+    the luu_bar it would return misses PROJECTION_REL_TOL."""
+    _, c = _inputs("mix", 7, 67, seed=3)
+    luu_bar = tl.project_cost_plain(*c, shift=UNIT_SHIFT)[3]
+    rows = slice(0, 12) if block == "force" else slice(12, 30)
+    wrong = luu_bar.clone()
+    wrong[..., rows, rows] += fault * UNIT_SHIFT * torch.eye(30, dtype=wrong.dtype)[rows, rows]
+    rel = float((wrong - luu_bar).abs().max() / luu_bar.abs().max())
+    assert rel > 10 * PROJECTION_REL_TOL, rel
 
 
 @pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
