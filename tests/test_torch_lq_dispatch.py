@@ -126,19 +126,19 @@ def test_cost_shift_lands_once_on_the_diagonal(pattern):
         torch.testing.assert_close(s, want, rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("block", ["force", "joint"])
-@pytest.mark.parametrize("fault", [-1.0, 1.0])
-def test_a_wrong_shift_fails_the_unit_shift_check(block, fault):
-    """chip_smoke.py's K3b check at UNIT_SHIFT sees a kernel that drops
-    (fault -1) or doubles (fault +1) the shift on either diagonal block:
-    the luu_bar it would return misses PROJECTION_REL_TOL."""
+def test_a_wrong_shift_fails_the_unit_shift_check():
+    """chip_smoke.py's K3b check at UNIT_SHIFT sees a kernel that drops or
+    doubles the shift on either diagonal block: the luu_bar it would return
+    misses PROJECTION_REL_TOL."""
     _, c = _inputs("mix", 7, 67, seed=3)
     luu_bar = tl.project_cost_plain(*c, shift=UNIT_SHIFT)[3]
-    rows = slice(0, 12) if block == "force" else slice(12, 30)
-    wrong = luu_bar.clone()
-    wrong[..., rows, rows] += fault * UNIT_SHIFT * torch.eye(30, dtype=wrong.dtype)[rows, rows]
-    rel = float((wrong - luu_bar).abs().max() / luu_bar.abs().max())
-    assert rel > 10 * PROJECTION_REL_TOL, rel
+    eye = torch.eye(30, dtype=luu_bar.dtype)
+    for rows in (slice(0, 12), slice(12, 30)):  # the force block, the joint block
+        for fault in (-1.0, 1.0):  # the shift dropped, doubled
+            wrong = luu_bar.clone()
+            wrong[..., rows, rows] += fault * UNIT_SHIFT * eye[rows, rows]
+            rel = float((wrong - luu_bar).abs().max() / luu_bar.abs().max())
+            assert rel > 10 * PROJECTION_REL_TOL, (rows, fault, rel)
 
 
 @pytest.mark.parametrize("pattern", PROJECTION_PATTERNS)
