@@ -42,10 +42,17 @@ Phases:
       wrapper to 1e-4 of f64 on seeded inputs of every fm/act pattern:
       all-stance, all-swing, a mix, act rows off; 7 x 67 nodes, one node,
       and misaligned inputs),
-      K3c (backward sweep), K3d (forward rollout), each against its plain
+      K3c (backward sweep), K3d (forward rollout; also timed in turns
+      (row_warps, new, new, row_warps) against the measuring build of the
+      PR 2 kernel, -DQM_FWD_ROW_WARPS, with both builds' phase clock64()
+      cycles a node, registers and blocks an SM, and held through its
+      wrapper to 1e-3 of f64 on seeded inputs of every fm/act pattern at
+      7 x 67, one node, one scenario, 397 scenarios (past one wave) and
+      misaligned inputs), each against its plain
       version in f64 on the same inputs (pass: relative max error <= 1e-4
-      for K3a/K3b, <= 1e-3 for the sweeps; the plain f32 error printed
-      beside), timed with CUDA events next to its bound and its plain time;
+      for K3a/K3b, <= 1e-3 for the sweeps and K3d; the plain f32 error
+      printed beside), timed with CUDA events next to its bound and its
+      plain time;
       K2 and K3c run the reg variant there, and the smem variant on the same
       data is checked too and timed in turns (smem, reg, reg, smem), with
       each variant's per-phase clock64() cycles a node; then K2 and K3c at
@@ -184,13 +191,14 @@ def spd_batch(rng, batch, n, m):
 
 def build_all():
     """Build every kernel source of qm_door_torch/csrc, the diagnostic build
-    of the sweep kernel and the measuring and diagnostic builds of K3a/K3b,
-    one nvcc each, all started together; log each one's ptxas report (kept
-    from the build when a library is reused) and fail unless it shows the
-    four K1 register kernels, the four sweep kernels (K2/K3c x reg/smem) and
-    the four K3a/K3b kernels (x bulk/4-byte copies) of the normal build
-    without spills. The phase-clock builds' spills are logged: their cycle
-    counts carry them."""
+    of the sweep kernel and the measuring and diagnostic builds of K3a/K3b
+    and K3d, one nvcc each, all started together; log each one's ptxas
+    report (kept from the build when a library is reused) and fail unless
+    it shows the four K1 register kernels, the four sweep kernels (K2/K3c x
+    reg/smem), the four K3a/K3b kernels (x bulk/4-byte copies) and the two
+    K3d kernels (bulk/4-byte copies) of the normal build without spills.
+    The phase-clock builds' spills are logged: their cycle counts carry
+    them."""
     from qm_door_torch.ops import cuda_build
     from qm_door_torch.ops import lq
     from qm_door_torch.ops import riccati_fused
@@ -199,6 +207,8 @@ def build_all():
     libs += [("riccati_bwd", (riccati_fused.PHASE_CLOCKS,))]
     libs += [("lq_project", LQ_BUILDS["scalar"])]
     libs += [("lq_project", d + (lq.PHASE_CLOCKS,)) for d in LQ_BUILDS.values()]
+    libs += [("lq_forward", FORWARD_BUILDS["row_warps"])]
+    libs += [("lq_forward", d + (lq.FWD_PHASE_CLOCKS,)) for d in FORWARD_BUILDS.values()]
     t0 = time.time()
     with ThreadPoolExecutor(len(libs)) as pool:
         outs = list(pool.map(lambda lib: cuda_build.build(*lib), libs))
@@ -206,19 +216,28 @@ def build_all():
     for (name, defines), out in zip(libs, outs):
         for line in out.splitlines():
             log(f"nvcc {' -D'.join((name,) + defines)}: {line}")
-    for label, lib, kernel in (("K1 register variants", ("spd_solve", ()), "spd_reg_kernel"),
-                               ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel"),
-                               ("K3a/K3b kernels", ("lq_project", ()), "project_")):
+    for label, lib, kernel, count in (
+            ("K1 register variants", ("spd_solve", ()), "spd_reg_kernel", 4),
+            ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel", 4),
+            ("K3a/K3b kernels", ("lq_project", ()), "project_", 4),
+            ("K3d kernels", ("lq_forward", ()), "forward_kernel", 2)):
         spills = kernel_spills(outs[libs.index(lib)], kernel)
         log(f"{label}, bytes of spill stores: {json.dumps(spills)}")
-        if len(spills) != 4 or any(spills.values()):
-            raise RuntimeError(f"{label}: expected 4 kernels without spills, "
+        if len(spills) != count or any(spills.values()):
+            raise RuntimeError(f"{label}: expected {count} kernels without spills, "
                                f"ptxas reports {spills}")
     for build, defines in LQ_BUILDS.items():
         out = outs[libs.index(("lq_project", defines + (lq.PHASE_CLOCKS,)))]
         LQ_CLOCK_SPILLS[build] = {lq_instance(name): v
                                   for name, v in kernel_spills(out, "project_").items()}
     log(f"K3a/K3b phase-clock builds, bytes of spill stores: {json.dumps(LQ_CLOCK_SPILLS)}")
+    for build, defines in FORWARD_BUILDS.items():
+        FORWARD_PTXAS[build] = forward_ptxas(outs[libs.index(("lq_forward", defines))])
+        FORWARD_CLOCK_SPILLS[build] = {
+            k: v["spill_stores"] for k, v in forward_ptxas(
+                outs[libs.index(("lq_forward", defines + (lq.FWD_PHASE_CLOCKS,)))]).items()}
+    log(f"K3d builds (registers, spills): {json.dumps(FORWARD_PTXAS)}; phase-clock builds, "
+        f"bytes of spill stores: {json.dumps(FORWARD_CLOCK_SPILLS)}")
     clock_spills = kernel_spills(
         outs[libs.index(("riccati_bwd", (riccati_fused.PHASE_CLOCKS,)))], "riccati_bwd_kernel")
     SWEEP_CLOCK_SPILLS.update({sweep_instance(k): v for k, v in clock_spills.items()})
@@ -227,8 +246,12 @@ def build_all():
 
 SWEEP_CLOCK_SPILLS = {}  # the phase-clock build's spills, noted beside its readings
 LQ_CLOCK_SPILLS = {}     # the same for K3a/K3b's phase-clock builds, by build
+FORWARD_CLOCK_SPILLS = {}  # and for K3d's, by build
+FORWARD_PTXAS = {}         # K3d's registers and spills, by build and instantiation
 # K3a/K3b's builds: the normal one and the scalar-product kernels (a measuring build)
 LQ_BUILDS = {"new": (), "scalar": ("QM_LQ_SCALAR_PRODUCTS",)}
+# K3d's builds: the normal one and the PR 2 kernel (a measuring build)
+FORWARD_BUILDS = {"new": (), "row_warps": ("QM_FWD_ROW_WARPS",)}
 
 
 def sweep_instance(name):
@@ -272,6 +295,22 @@ def lq_instance(name):
     if "kernelILb" not in name:
         return kind
     return f"{kind}_{'bulk' if name.split('kernelILb')[1][0] == '1' else 'cp.async4'}"
+
+
+def forward_instance(name):
+    """"bulk", "cp.async4" for a mangled forward_kernel<kBulk> name;
+    "row_warps" for the PR 2 kernel (no template)."""
+    if "kernelILb" not in name:
+        return "row_warps"
+    return "bulk" if name.split("kernelILb")[1][0] == "1" else "cp.async4"
+
+
+def forward_ptxas(report):
+    """{instantiation: {"registers", "spill_stores"}} of K3d's kernels in a
+    ptxas report of an lq_forward build."""
+    spills = kernel_spills(report, "forward_kernel")
+    return {forward_instance(f): {"registers": r, "spill_stores": spills[f]}
+            for f, r in kernel_registers(report, "forward_kernel").items()}
 
 
 def launch_counters():
@@ -758,6 +797,102 @@ def lq_phases(kid, defines, args, shift=0.0):
             "share": {name: c / total for name, c in cycles.items()}}
 
 
+def forward_bytes(Bb, N):
+    """Bytes K3d must move for Bb scenarios of N nodes: NODE_COST's floats
+    a node, and each scenario's dx0 and last dX row."""
+    return 4 * (Bb * N * NODE_COST["K3d"][0] + 2 * Bb * 30)
+
+
+PATH_SHIFT = 1e-5  # the solver's Hessian shift (BatchedMpc's default)
+
+
+def forward_data(Bb, N, pattern, seed, device="cpu"):
+    """float64 torch inputs of K3d (A_bar, B_bar, d_bar, K, kff, p, P, Px_v,
+    fm, dx0) on `device`: projection_data's inputs of `pattern` through the
+    plain K3a and K3b (at PATH_SHIFT), the gains of the plain K3c on them
+    from a seeded SPD terminal cost, and dx0 ~ 0.1 N(0, 1), as backend
+    lq_fused chains the kernels."""
+    import torch
+
+    from qm_door_torch.ops import lq as tl
+
+    geom, cost = projection_data(Bb, N, pattern, seed)
+    rng = np.random.default_rng(seed + 1)
+    W = rng.normal(size=(Bb, 30, 30))
+    t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    g = [t(a) for a in geom]
+    A_bar, B_bar, d_bar, p, P, Px_v = tl.project_geom_plain(*g)
+    projected = tl.project_cost_plain(*[t(a) for a in cost], p, P, Px_v, g[-1], shift=PATH_SHIFT)
+    K, kff = tl.riccati_backward_ll_plain(
+        A_bar, B_bar, d_bar, *projected, t(W @ np.swapaxes(W, -1, -2) + 0.5 * np.eye(30)),
+        t(rng.normal(size=(Bb, 30))))
+    return [A_bar, B_bar, d_bar, K, kff, p, P, Px_v, g[-1], t(0.1 * rng.normal(size=(Bb, 30)))]
+
+
+# K3d's phases, as csrc/lq_forward.cu's diagnostic build (-DQM_FWD_PHASE_CLOCKS)
+# counts them on block 0's thread 0: in the normal build a row of warp 0,
+# which waits at the two named barriers for warps 1 and 2 ("rows_A_Px":
+# A dx, Px_v dx; "dx_next_du": B u_red, P u_v); in the PR 2 kernel row 0's warp
+FORWARD_PHASES = {"new": ("wait", "u", "rows_A_Px", "dx_next_du", "release"),
+                  "row_warps": ("wait", "u", "du", "dx_next", "stores")}
+
+
+def forward_call(defines, args, clocks=None):
+    """A call that launches K3d from the lq_forward build with `defines` on
+    CUDA tensors `args` (its wrapper's inputs) into outputs allocated once,
+    and returns them; the wrapper's launch counter is not touched. `clocks`
+    (6 int64 on the card) is for the phase-clock build."""
+    import torch
+
+    from qm_door_torch.ops import lq as tl
+    from qm_door_torch.ops.cuda_build import check_launch
+
+    Bb, N = args[0].shape[:2]
+    outs = (torch.empty(Bb, N + 1, 30, device=args[0].device),
+            torch.empty(Bb, N, 30, device=args[0].device))
+    fn = tl.forward_fn(defines)
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    ptrs = [t.data_ptr() for t in list(args) + list(outs)]
+    clk = None if clocks is None else clocks.data_ptr()
+
+    def call():
+        check_launch(f"K3d build {defines}", fn(*ptrs, Bb, N, stream, clk))
+        return outs
+
+    return call
+
+
+def forward_phases(build, args):
+    """clock64() cycles a node of each phase of K3d's build `build` (a key of
+    FORWARD_BUILDS) in block 0's thread 0, from its phase-clock build."""
+    import torch
+
+    from qm_door_torch.ops.lq import FWD_PHASE_CLOCKS
+
+    clocks = torch.zeros(6, dtype=torch.int64, device=args[0].device)
+    forward_call(FORWARD_BUILDS[build] + (FWD_PHASE_CLOCKS,), args, clocks)()
+    torch.cuda.synchronize()
+    counts = clocks.tolist()
+    cycles = {name: c / counts[5] for name, c in zip(FORWARD_PHASES[build], counts)}
+    total = sum(cycles.values())
+    return {"cycles": cycles, "total": total,
+            "share": {name: c / total for name, c in cycles.items()}}
+
+
+def forward_blocks_per_sm(defines):
+    """Blocks an SM of K3d's lq_forward build with `defines` on the current
+    device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor counts them."""
+    import ctypes
+
+    from qm_door_torch.ops import lq as tl
+    from qm_door_torch.ops.cuda_build import check_launch
+
+    blocks = ctypes.c_int(0)
+    check_launch("K3d occupancy query", tl.c_entry(
+        "lq_forward", "qm_lq_forward_blocks_per_sm", defines)(ctypes.byref(blocks)))
+    return blocks.value
+
+
 SWEEP_PHASES = ("load", "SA_SB_Sd", "Q_terms", "cholesky", "substitutions", "S_update")
 
 
@@ -946,6 +1081,76 @@ def projection_turns(row, args, shift, reps=50):
     log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in LQ_TURN_KEYS}))
 
 
+def forward_turns(row, args, reps=50):
+    """K3d against the measuring build of the PR 2 kernel on the same
+    inputs, both launched straight through the C entry point into outputs
+    allocated once, timed in turns (row_warps, new, new, row_warps) in
+    chained calls: `ms_turns` and `ms_row_warps_turns` are the two builds'
+    means. `ms` stays kernel_row's time through the wrapper. Both builds'
+    phase clocks a node, registers and blocks an SM."""
+    calls = {b: forward_call(d, args) for b, d in FORWARD_BUILDS.items()}
+    turns = {}
+    for i, build in enumerate(("row_warps", "new", "new", "row_warps")):
+        turns[f"{build}_{i}"] = cuda_ms(calls[build], reps=reps)
+    mean = lambda b: float(np.mean([t for k, t in turns.items() if k.startswith(b)]))  # noqa: E731
+    row.update(ms_turns=mean("new"), ms_row_warps_turns=mean("row_warps"), turns=turns,
+               phase_cycles_per_node={b: forward_phases(b, args) for b in FORWARD_BUILDS},
+               registers={b: {k: v["registers"] for k, v in FORWARD_PTXAS[b].items()}
+                          for b in FORWARD_BUILDS},
+               blocks_per_sm={b: forward_blocks_per_sm(d) for b, d in FORWARD_BUILDS.items()},
+               phase_clock_build_spills=FORWARD_CLOCK_SPILLS)
+    log("[d] K3d in turns: " + json.dumps({k: row[k] for k in FORWARD_TURN_KEYS}))
+
+
+# what forward_turns adds to K3d's row
+FORWARD_TURN_KEYS = ("ms_turns", "ms_row_warps_turns", "turns", "phase_cycles_per_node",
+                     "registers", "blocks_per_sm", "phase_clock_build_spills")
+# (Bb, N, inputs one float past an aligned base) of the seeded K3d checks, each
+# on every pattern: 7 x 67, one node, one scenario, one block past a wave of
+# 3 blocks on 132 SMs, and the 4-byte copies that stand in for the bulk
+# copies on misaligned inputs
+FORWARD_CASES = ((7, 67, False), (3, 1, False), (1, 67, False), (397, 67, False),
+                 (5, 9, True))
+
+
+def misaligned(t):
+    """A copy of CUDA tensor `t` whose base lies one element past an aligned one."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_forward_cases(dev):
+    """(d) K3d through its wrapper on seeded inputs of every fm/act pattern
+    (PROJECTION_PATTERNS) in each of FORWARD_CASES, each within SWEEP_REL_TOL
+    of the f64 plain version."""
+    import torch
+
+    from qm_door_torch.ops import lq as tl
+
+    wrapper = tl.riccati_forward_ll
+    checks = {}
+    for i, pattern in enumerate(PROJECTION_PATTERNS):
+        for Bb, N, off in FORWARD_CASES:
+            args = forward_data(Bb, N, pattern, 2000 + 10 * i + Bb, dev)
+            ref = tl.riccati_forward_ll_plain(*args)
+            f32 = [t.float().contiguous() for t in args]
+            label = f"K3d {pattern} {Bb}x{N}{' misaligned' if off else ''}"
+            before = wrapper.launches
+            outs = wrapper(*[misaligned(t) for t in f32] if off else f32)
+            torch.cuda.synchronize()
+            rel, _ = rel_err(outs, ref)
+            if wrapper.launches != before + 1:
+                raise RuntimeError(f"{label}: the wrapper did not launch its kernel")
+            if not (rel <= SWEEP_REL_TOL and np.isfinite(rel)):
+                raise RuntimeError(f"{label}: relative error {rel:.3e} > {SWEEP_REL_TOL}")
+            checks[label] = rel
+    log(f"[d] K3d on every fm pattern and edge case (relative error): ok {json.dumps(checks)}")
+
+
 # what projection_turns adds to K3a's and K3b's rows
 LQ_TURN_KEYS = ("ms_new_turns", "ms_scalar_turns", "ms_turns", "phase_cycles_per_node",
                 "phase_clock_build_spills")
@@ -969,12 +1174,6 @@ def check_projection_patterns(dev, shift):
     import torch
 
     from qm_door_torch.ops import lq as tl
-
-    def misaligned(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        out = flat[1:].view(t.shape)
-        out.copy_(t)
-        return out
 
     checks = {}
     for i, pattern in enumerate(PROJECTION_PATTERNS):
@@ -1058,11 +1257,12 @@ def phase_new_kernels(dev, main):
     sweep_turns(rows["K3c"], bwd_args, ref, False)
     check_sweep_at_shapes(dev)
     fwd_args = [A_bar, B_bar, d_bar, K, kff, p, P, Px_v, fm, c(x_batch - X[:, 0])]
-    floats, fl = NODE_COST["K3d"]
     rows["K3d"], _ = kernel_row(
         "K3d", "riccati_forward_ll", tl.riccati_forward_ll, tl.riccati_forward_ll_plain,
         fwd_args, tl.riccati_forward_ll_plain(*f64(fwd_args)), SWEEP_REL_TOL,
-        4 * (B * N * floats + 2 * B * 30), B * N * fl)
+        forward_bytes(B, N), B * N * NODE_COST["K3d"][1], reps=50)
+    forward_turns(rows["K3d"], fwd_args)
+    check_forward_cases(dev)
 
     # K1-ll: lanes-last SPD solves at the gain shape, then ragged batches;
     # each through the variant K1's dispatch names (reg32, reg16, smem)
@@ -1297,6 +1497,8 @@ def main():
             "flops": r["flops"]})
         if kid in ("K3a", "K3b"):  # (d)'s scalar build in turns and both builds' clocks
             kernels[-1].update({k: r[k] for k in LQ_TURN_KEYS})
+        if kid == "K3d":  # (d)'s PR 2 build in turns, both builds' clocks and occupancy
+            kernels[-1].update({k: r[k] for k in FORWARD_TURN_KEYS})
         if kid in sweep_by_variant:  # K2, K3c: the (e) run's launches by variant, and (d)'s
             kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",

@@ -42,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "chol_warp.cuh"
 
 // Diagnostic build (-DQM_LQ_PHASE_CLOCKS, chip_smoke.py phase (d)): each
@@ -70,6 +71,8 @@
 #endif
 
 namespace {
+
+using namespace bulk_copy;
 
 constexpr int kThreads = 128;
 constexpr int NX = 30;
@@ -370,66 +373,6 @@ project_cost_kernel(const float* __restrict__ glx, const float* __restrict__ glu
 #endif
 constexpr int kCostBlocks = QM_LQ_COST_BLOCKS;
 constexpr int kUnroll = 6;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// --- Hopper's bulk copies (the TMA's 1-D form) and their mbarrier -----------
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One arrival that expects `bytes` of bulk copies to complete on `bar`.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
-// shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// `bytes` from shared to global memory, in this thread's bulk group.
-__device__ __forceinline__ void bulk_store(float* dst, const float* src, unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// Orders this thread's writes to shared memory before a bulk store reads them.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // acc[u][v] = sum_{q < kDepth} A[q * lda + u] * B[q * ldb + v] (u < 4, v < 6):
 // a 4 x 6 register tile of X^T Y, summed in q's order (the order of the
@@ -1039,11 +982,9 @@ int launch_check(long long nodes) {
   return nodes < 0 || nodes > 0x7fffffffLL ? (int)cudaErrorInvalidValue : 0;
 }
 
-bool aligned(const void* ptr, unsigned bytes) {
-  return (reinterpret_cast<uintptr_t>(ptr) & (bytes - 1)) == 0;
-}
-
 }  // namespace
+
+using bulk_copy::aligned;
 
 // K3a over `nodes` batch-major nodes: A, B (nodes, 30, 30), d (nodes, 30),
 // g0 (nodes, 12), Gx (nodes, 12, 30), Gv (nodes, 12, 18), F_bar, act, fm

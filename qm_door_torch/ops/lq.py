@@ -71,35 +71,40 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_fns: dict = {}
-
-
-def _c_fn(source, name, argtypes):
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(load(source), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
-
-
 def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
 
 
-# --- K3a, K3b: the builds of csrc/lq_project.cu --------------------------------
-
-PHASE_CLOCKS = "QM_LQ_PHASE_CLOCKS"        # diagnostic build: cycles a phase
-SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the scalar-product kernels
 # the parameters of this module's C entry points, as ctypes types
 _ARGTYPES = {
     "qm_lq_project_geom_f32": [ctypes.c_void_p] * 15 + [ctypes.c_longlong]
                               + [ctypes.c_void_p] * 2,
     "qm_lq_project_cost_f32": [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 5
                               + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
-    "qm_lq_forward_f32": [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "qm_lq_forward_f32": [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int]
+                         + [ctypes.c_void_p] * 2,
+    "qm_lq_forward_blocks_per_sm": [ctypes.c_void_p],
 }
+_fns: dict = {}
+
+
+def c_entry(source: str, name: str, defines=()):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` built with
+    ``defines``, bound with its ctypes parameters."""
+    key = (name, tuple(defines))
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(load(source, tuple(defines)), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+# --- K3a, K3b: the builds of csrc/lq_project.cu --------------------------------
+
+PHASE_CLOCKS = "QM_LQ_PHASE_CLOCKS"        # diagnostic build: cycles a phase
+SCALAR_PRODUCTS = "QM_LQ_SCALAR_PRODUCTS"  # measuring build: the scalar-product kernels
 
 
 def project_fn(kernel: str, defines=()):
@@ -109,14 +114,7 @@ def project_fn(kernel: str, defines=()):
     measuring on the card. Its last arguments are the node count, the
     stream and ``clocks`` (7 int64 or None), written by the phase-clock
     build only; the entry point sizes its grid itself."""
-    key = (f"qm_lq_project_{kernel}_f32", tuple(defines))
-    fn = _fns.get(key)
-    if fn is None:
-        fn = getattr(load("lq_project", tuple(defines)), key[0])
-        fn.argtypes = _ARGTYPES[key[0]]
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
-    return fn
+    return c_entry("lq_project", f"qm_lq_project_{kernel}_f32", defines)
 
 
 # --- K3a: projector geometry + dynamics substitution -------------------------
@@ -262,6 +260,17 @@ riccati_backward_ll.launches_by_variant = dict.fromkeys(SWEEP_VARIANTS, 0)
 
 # --- K3d: forward rollout + input recovery --------------------------------------
 
+FWD_PHASE_CLOCKS = "QM_FWD_PHASE_CLOCKS"  # diagnostic build: cycles a phase
+
+
+def forward_fn(defines=()):
+    """The C entry point of K3d from the lq_forward library built with
+    ``defines``. The wrapper takes the normal build; ``(FWD_PHASE_CLOCKS,)``
+    and ``("QM_FWD_ROW_WARPS",)`` (the PR 2 kernel) are for measuring on
+    the card. Its last arguments are the batch, N, the stream and
+    ``clocks`` (6 int64 or None), written by the phase-clock build only."""
+    return c_entry("lq_forward", "qm_lq_forward_f32", defines)
+
 def riccati_forward_ll_plain(A, B, d, K, kff, p, P, Px_v, fm, dx0):
     """``_forward_kernel`` as torch ops. Returns (dX (B,N+1,30), dU (B,N,30))."""
     dx = dx0
@@ -298,9 +307,8 @@ def riccati_forward_ll(A, B, d, K, kff, p, P, Px_v, fm, dx0):
     dU = torch.empty(Bb, N, NU, dtype=A.dtype, device=A.device)
     if Bb == 0:
         return dX, dU
-    fn = _c_fn("lq_forward", "qm_lq_forward_f32", _ARGTYPES["qm_lq_forward_f32"])
     with torch.cuda.device(A.device):
-        err = fn(*_ptrs(ins + (dX, dU)), Bb, N, _stream(A))
+        err = forward_fn()(*_ptrs(ins + (dX, dU)), Bb, N, _stream(A), None)
     check_launch("riccati_forward_ll", err)
     riccati_forward_ll.launches += 1
     return dX, dU
