@@ -153,6 +153,22 @@ def graph_ms(fn, calls=50, replays=5):
     return start.elapsed_time(end) / (calls * replays)
 
 
+def in_turns(calls, order, timer):
+    """Time each call of `calls` ({name: call}) with `timer` (call -> ms),
+    once for each place its name has in `order`, in that order, so that
+    every build or variant meets the card's clocks alike. Returns the
+    per-turn times ({"<name>_<i>": ms}) and each name's mean."""
+    turns = {f"{name}_{i}": timer(calls[name]) for i, name in enumerate(order)}
+    means = {name: float(np.mean([ms for key, ms in turns.items()
+                                  if key.rsplit("_", 1)[0] == str(name)])) for name in calls}
+    return turns, means
+
+
+def chained(reps):
+    """A timer for in_turns: ms a call over `reps` chained calls (cuda_ms)."""
+    return lambda fn: cuda_ms(fn, reps=reps)
+
+
 def device_busy(fn):
     """One call of `fn` under torch.profiler: the union of the device
     intervals it traced (kernels, copies, fills) in ms, their count, and the
@@ -205,8 +221,8 @@ def build_all():
 
     libs = [(n[:-3], ()) for n in sorted(os.listdir(cuda_build.CSRC)) if n.endswith(".cu")]
     libs += [("riccati_bwd", (riccati_fused.PHASE_CLOCKS,))]
-    libs += [("lq_project", LQ_BUILDS["scalar"])]
-    libs += [("lq_project", d + (lq.PHASE_CLOCKS,)) for d in LQ_BUILDS.values()]
+    libs += [("lq_project", PROJECTION_BUILDS["scalar"])]
+    libs += [("lq_project", d + (lq.PHASE_CLOCKS,)) for d in PROJECTION_BUILDS.values()]
     libs += [("lq_forward", FORWARD_BUILDS["row_warps"])]
     libs += [("lq_forward", d + (lq.FWD_PHASE_CLOCKS,)) for d in FORWARD_BUILDS.values()]
     t0 = time.time()
@@ -226,7 +242,7 @@ def build_all():
         if len(spills) != count or any(spills.values()):
             raise RuntimeError(f"{label}: expected {count} kernels without spills, "
                                f"ptxas reports {spills}")
-    for build, defines in LQ_BUILDS.items():
+    for build, defines in PROJECTION_BUILDS.items():
         out = outs[libs.index(("lq_project", defines + (lq.PHASE_CLOCKS,)))]
         LQ_CLOCK_SPILLS[build] = {lq_instance(name): v
                                   for name, v in kernel_spills(out, "project_").items()}
@@ -249,9 +265,10 @@ LQ_CLOCK_SPILLS = {}     # the same for K3a/K3b's phase-clock builds, by build
 FORWARD_CLOCK_SPILLS = {}  # and for K3d's, by build
 FORWARD_PTXAS = {}         # K3d's registers and spills, by build and instantiation
 # K3a/K3b's builds: the normal one and the scalar-product kernels (a measuring build)
-LQ_BUILDS = {"new": (), "scalar": ("QM_LQ_SCALAR_PRODUCTS",)}
+PROJECTION_BUILDS = {"new": (), "scalar": ("QM_LQ_SCALAR_PRODUCTS",)}
 # K3d's builds: the normal one and the PR 2 kernel (a measuring build)
 FORWARD_BUILDS = {"new": (), "row_warps": ("QM_FWD_ROW_WARPS",)}
+LQ_BUILDS = {"K3a": PROJECTION_BUILDS, "K3b": PROJECTION_BUILDS, "K3d": FORWARD_BUILDS}
 
 
 def sweep_instance(name):
@@ -390,15 +407,13 @@ def phase_kernels(dev):
         turns = (variant,) if variant == "smem" else ("smem", variant, variant, "smem")
         if variant != "smem":  # the smem kernel on the same inputs, in turns
             _, row["rel_err_smem"], _ = k1_run(A, Y, X_ref, label, variant="smem")
-        events, graph = {}, {}
-        for i, v in enumerate(turns):
-            call = lambda v=v: spd_solve(A, Y, _variant=v)  # noqa: E731
-            events[f"{v}_{i}"], graph[f"{v}_{i}"] = cuda_ms(call, reps=50), graph_ms(call)
-        mean = lambda d, v: float(np.mean([t for k, t in d.items() if k.startswith(v)]))  # noqa: E731
-        ms = mean(events, variant)
-        row.update(ms_graph=mean(graph, variant), ms_turns=events, ms_graph_turns=graph)
+        calls = {v: (lambda v=v: spd_solve(A, Y, _variant=v)) for v in turns}
+        row["ms_turns"], events = in_turns(calls, turns, chained(50))
+        row["ms_graph_turns"], graph = in_turns(calls, turns, graph_ms)
+        ms = events[variant]
+        row["ms_graph"] = graph[variant]
         if variant != "smem":
-            row.update(ms_smem=mean(events, "smem"), ms_smem_graph=mean(graph, "smem"))
+            row.update(ms_smem=events["smem"], ms_smem_graph=graph["smem"])
         plain_ms = cuda_ms(lambda: spd_solve_plain(A, Y), reps=5, warmup=1)
         lib_ms = cuda_ms(lambda: torch.cholesky_solve(Y, torch.linalg.cholesky(A)), reps=20)
         # the kernel reads A's lower triangle and Y once, writes X once
@@ -702,14 +717,24 @@ NODE_COST = {  # (floats moved, flops) per node, nx = nu = 30, 18 joint and 12 f
 }
 
 
-# K3a/K3b's phases, as csrc/lq_project.cu's diagnostic build (-DQM_LQ_PHASE_CLOCKS)
-# counts them, in the normal build ("new") and the scalar-product kernels ("scalar")
+# the phases of K3a/K3b (csrc/lq_project.cu's -DQM_LQ_PHASE_CLOCKS) and of
+# K3d (csrc/lq_forward.cu's -DQM_FWD_PHASE_CLOCKS), by kernel and build:
+# the normal build ("new") and the measuring build of the kernel it replaced
+# (K3a/K3b "scalar", K3d "row_warps"); K3d's are block 0's thread 0's, in
+# the normal build a row of warp 0, which waits at the two named barriers
+# for warps 1 and 2 ("rows_A_Px": A dx, Px_v dx; "dx_next_du": B u_red,
+# P u_v), in the PR 2 kernel row 0's warp
 LQ_PHASES = {
     ("K3a", "scalar"): ("load", "gram", "factor", "substitutions", "p_P_Px", "A_B_d_bar_stores"),
     ("K3a", "new"): ("load", "gram", "factor", "substitutions", "p_P_Px", "A_B_d_bar_stores"),
     ("K3b", "scalar"): ("load", "first_products", "lx_lu", "lxx", "luu", "lux"),
     ("K3b", "new"): ("load", "first_products", "second_products", "stores"),
+    ("K3d", "new"): ("wait", "u", "rows_A_Px", "dx_next_du", "release"),
+    ("K3d", "row_warps"): ("wait", "u", "du", "dx_next", "stores"),
 }
+# the int64 slots of their `clocks` argument: six phases (K3a/K3b) or five
+# (K3d) at most, then block 0's node count
+LQ_CLOCK_SLOTS = {"K3a": 7, "K3b": 7, "K3d": 6}
 # the fm/act patterns of the projection's branches: every foot in stance,
 # every foot in swing, a random mix, and a random mix with act rows switched
 # off beyond the swing rows (a constraint row dropped, its Gv row zero)
@@ -748,53 +773,66 @@ def projection_data(Bb, N, pattern, seed):
     return geom, cost
 
 
-def lq_project_call(kid, defines, args, shift=0.0, clocks=None):
-    """A call that launches K3a or K3b from the lq_project build with
+def lq_call(kid, defines, args, shift=0.0, clocks=None):
+    """A call that launches K3a, K3b or K3d from its source's build with
     `defines` on CUDA tensors `args` (its wrapper's inputs) into outputs
     allocated once, and returns them; the wrapper's launch counter is not
-    touched. `clocks` (7 int64 on the card) is for the phase-clock build."""
+    touched. `clocks` (int64 on the card) is for the phase-clock builds."""
     import torch
 
     from qm_door_torch.ops import lq as tl
     from qm_door_torch.ops.cuda_build import check_launch
 
-    geom = kid == "K3a"
-    lead = (args[0] if geom else args[2]).shape[:-2]
-    outs = tuple(torch.empty(*lead, *tail, device=args[0].device)
-                 for tail in (tl.GEOM_OUT if geom else tl.COST_OUT))
-    nodes = int(np.prod(lead))
-    fn = tl.project_fn("geom" if geom else "cost", defines)
-    stream = torch.cuda.current_stream(args[0].device).cuda_stream
-    ptrs = lambda ts: [t.data_ptr() for t in ts]  # noqa: E731
+    dev = args[0].device
+    if kid == "K3d":
+        Bb, N = args[0].shape[:2]
+        outs = (torch.empty(Bb, N + 1, 30, device=dev), torch.empty(Bb, N, 30, device=dev))
+        fn, sizes = tl.forward_fn(defines), (Bb, N)
+    else:
+        geom = kid == "K3a"
+        lead = (args[0] if geom else args[2]).shape[:-2]
+        outs = tuple(torch.empty(*lead, *tail, device=dev)
+                     for tail in (tl.GEOM_OUT if geom else tl.COST_OUT))
+        fn, sizes = tl.project_fn("geom" if geom else "cost", defines), (int(np.prod(lead)),)
+    head = [t.data_ptr() for t in args] + ([float(shift)] if kid == "K3b" else [])
+    tail = [t.data_ptr() for t in outs] + list(sizes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     clk = None if clocks is None else clocks.data_ptr()
 
     def call():
-        if geom:
-            err = fn(*ptrs(args), *ptrs(outs), nodes, stream, clk)
-        else:
-            err = fn(*ptrs(args), float(shift), *ptrs(outs), nodes, stream, clk)
-        check_launch(f"{kid} build {defines}", err)
+        check_launch(f"{kid} build {defines}", fn(*head, *tail, stream, clk))
         return outs
 
     return call
 
 
-def lq_phases(kid, defines, args, shift=0.0):
-    """clock64() cycles a node of each phase of K3a or K3b in block 0's
-    thread 0, from the phase-clock build of the build `defines`."""
+def phase_clocks(launch, names, slots, device, nodes=None):
+    """clock64() cycles a node of each phase `names` of a phase-clock build
+    in block 0's thread 0: `launch(clocks)` runs the build once with
+    `clocks`, `slots` int64 on `device` that begin with a slot a phase and,
+    unless `nodes` gives the nodes block 0 ran, end with the kernel's count
+    of them."""
     import torch
 
-    from qm_door_torch.ops.lq import PHASE_CLOCKS, SCALAR_PRODUCTS
-
-    clocks = torch.zeros(7, dtype=torch.int64, device=args[0].device)
-    lq_project_call(kid, tuple(defines) + (PHASE_CLOCKS,), args, shift, clocks)()
+    clocks = torch.zeros(slots, dtype=torch.int64, device=device)
+    launch(clocks)
     torch.cuda.synchronize()
     counts = clocks.tolist()
-    names = LQ_PHASES[kid, "scalar" if SCALAR_PRODUCTS in defines else "new"]
-    cycles = {name: c / counts[6] for name, c in zip(names, counts)}
+    nodes = counts[-1] if nodes is None else nodes
+    cycles = {name: c / nodes for name, c in zip(names, counts)}
     total = sum(cycles.values())
-    return {"cycles": cycles, "total": total, "nodes_block0": counts[6],
+    return {"cycles": cycles, "total": total, "nodes_block0": nodes,
             "share": {name: c / total for name, c in cycles.items()}}
+
+
+def lq_phases(kid, build, args, shift=0.0):
+    """Cycles a node of each phase of K3a's, K3b's or K3d's build `build`
+    (a key of LQ_BUILDS[kid]), from its phase-clock build."""
+    from qm_door_torch.ops.lq import FWD_PHASE_CLOCKS, PHASE_CLOCKS
+
+    defines = LQ_BUILDS[kid][build] + (FWD_PHASE_CLOCKS if kid == "K3d" else PHASE_CLOCKS,)
+    return phase_clocks(lambda clocks: lq_call(kid, defines, args, shift, clocks)(),
+                        LQ_PHASES[kid, build], LQ_CLOCK_SLOTS[kid], args[0].device)
 
 
 def forward_bytes(Bb, N):
@@ -829,56 +867,6 @@ def forward_data(Bb, N, pattern, seed, device="cpu"):
     return [A_bar, B_bar, d_bar, K, kff, p, P, Px_v, g[-1], t(0.1 * rng.normal(size=(Bb, 30)))]
 
 
-# K3d's phases, as csrc/lq_forward.cu's diagnostic build (-DQM_FWD_PHASE_CLOCKS)
-# counts them on block 0's thread 0: in the normal build a row of warp 0,
-# which waits at the two named barriers for warps 1 and 2 ("rows_A_Px":
-# A dx, Px_v dx; "dx_next_du": B u_red, P u_v); in the PR 2 kernel row 0's warp
-FORWARD_PHASES = {"new": ("wait", "u", "rows_A_Px", "dx_next_du", "release"),
-                  "row_warps": ("wait", "u", "du", "dx_next", "stores")}
-
-
-def forward_call(defines, args, clocks=None):
-    """A call that launches K3d from the lq_forward build with `defines` on
-    CUDA tensors `args` (its wrapper's inputs) into outputs allocated once,
-    and returns them; the wrapper's launch counter is not touched. `clocks`
-    (6 int64 on the card) is for the phase-clock build."""
-    import torch
-
-    from qm_door_torch.ops import lq as tl
-    from qm_door_torch.ops.cuda_build import check_launch
-
-    Bb, N = args[0].shape[:2]
-    outs = (torch.empty(Bb, N + 1, 30, device=args[0].device),
-            torch.empty(Bb, N, 30, device=args[0].device))
-    fn = tl.forward_fn(defines)
-    stream = torch.cuda.current_stream(args[0].device).cuda_stream
-    ptrs = [t.data_ptr() for t in list(args) + list(outs)]
-    clk = None if clocks is None else clocks.data_ptr()
-
-    def call():
-        check_launch(f"K3d build {defines}", fn(*ptrs, Bb, N, stream, clk))
-        return outs
-
-    return call
-
-
-def forward_phases(build, args):
-    """clock64() cycles a node of each phase of K3d's build `build` (a key of
-    FORWARD_BUILDS) in block 0's thread 0, from its phase-clock build."""
-    import torch
-
-    from qm_door_torch.ops.lq import FWD_PHASE_CLOCKS
-
-    clocks = torch.zeros(6, dtype=torch.int64, device=args[0].device)
-    forward_call(FORWARD_BUILDS[build] + (FWD_PHASE_CLOCKS,), args, clocks)()
-    torch.cuda.synchronize()
-    counts = clocks.tolist()
-    cycles = {name: c / counts[5] for name, c in zip(FORWARD_PHASES[build], counts)}
-    total = sum(cycles.values())
-    return {"cycles": cycles, "total": total,
-            "share": {name: c / total for name, c in cycles.items()}}
-
-
 def forward_blocks_per_sm(defines):
     """Blocks an SM of K3d's lq_forward build with `defines` on the current
     device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor counts them."""
@@ -909,16 +897,13 @@ def sweep_phases(args, symmetrize, variant):
     Bb, N, nx, nu = B.shape
     K = torch.empty(Bb, N, nu, nx, device=A.device)
     kff = torch.empty(Bb, N, nu, device=A.device)
-    clocks = torch.zeros(len(SWEEP_PHASES), dtype=torch.int64, device=A.device)
-    err = rf.kernel_fn(variant, (rf.PHASE_CLOCKS,))(
-        *(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(), Bb, N, nx, nu, 0.0,
-        int(symmetrize), torch.cuda.current_stream(A.device).cuda_stream, clocks.data_ptr())
-    check_launch("sweep phase clocks", err)
-    torch.cuda.synchronize()
-    cycles = {name: c / N for name, c in zip(SWEEP_PHASES, clocks.tolist())}
-    total = sum(cycles.values())
-    return {"cycles": cycles, "total": total,
-            "share": {name: c / total for name, c in cycles.items()}}
+
+    def launch(clocks):
+        check_launch("sweep phase clocks", rf.kernel_fn(variant, (rf.PHASE_CLOCKS,))(
+            *(t.data_ptr() for t in args), K.data_ptr(), kff.data_ptr(), Bb, N, nx, nu, 0.0,
+            int(symmetrize), torch.cuda.current_stream(A.device).cuda_stream, clocks.data_ptr()))
+
+    return phase_clocks(launch, SWEEP_PHASES, len(SWEEP_PHASES), A.device, nodes=N)
 
 
 # (Bb, N, nx, nu) off the path, each with and without a shift: the small
@@ -1048,11 +1033,9 @@ def sweep_turns(row, args, ref, symmetrize, reps=20):
     path = sweep_variant(*args[1].shape[2:])
     other = next(v for v in VARIANTS if v != path)
     _, row[f"rel_err_{other}"], _ = sweep_run(kid, args, ref, "path data", variant=other)
-    turns = {}
-    for i, v in enumerate((other, path, path, other)):
-        turns[f"{v}_{i}"] = cuda_ms(lambda v=v: sweep_call(kid, args, variant=v), reps=reps)
-    mean = lambda v: float(np.mean([t for k, t in turns.items() if k.startswith(v)]))  # noqa: E731
-    row.update(variant=path, ms=mean(path), ms_turns=turns, **{f"ms_{other}": mean(other)},
+    calls = {v: (lambda v=v: sweep_call(kid, args, variant=v)) for v in (other, path)}
+    turns, means = in_turns(calls, (other, path, path, other), chained(reps))
+    row.update(variant=path, ms=means[path], ms_turns=turns, **{f"ms_{other}": means[other]},
                phase_cycles_per_node={v: sweep_phases(args, symmetrize, v) for v in VARIANTS},
                phase_clock_build_spills=SWEEP_CLOCK_SPILLS)
     log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in (
@@ -1060,51 +1043,37 @@ def sweep_turns(row, args, ref, symmetrize, reps=20):
         "phase_cycles_per_node", "phase_clock_build_spills")}))
 
 
-def projection_turns(row, args, shift, reps=50):
-    """K3a or K3b (row["id"]) against the measuring build of its scalar-product
-    kernel on the same inputs, both launched straight through the C entry
-    point into outputs allocated once (the scalar build has no wrapper),
-    timed in turns (scalar, new, new, scalar) in chained calls:
-    `ms_new_turns` and `ms_scalar_turns` are the two builds' means. `ms`
-    stays kernel_row's time through the wrapper. Both builds' phase clocks
-    a node."""
+def lq_turns(row, args, shift=0.0, reps=50):
+    """K3a, K3b or K3d (row["id"]) against the measuring build of the kernel
+    it replaced (LQ_BUILDS) on the same inputs, both launched straight
+    through the C entry point into outputs allocated once (the measuring
+    build has no wrapper), timed in turns (measuring, new, new, measuring)
+    in chained calls: `ms_turns` holds each turn, `ms_<build>_turns` each
+    build's mean. `ms` stays kernel_row's time through the wrapper. Both
+    builds' phase clocks a node; for K3d also their registers and blocks
+    an SM."""
     kid = row["id"]
-    calls = {b: lq_project_call(kid, d, args, shift) for b, d in LQ_BUILDS.items()}
-    turns = {}
-    for i, build in enumerate(("scalar", "new", "new", "scalar")):
-        turns[f"{build}_{i}"] = cuda_ms(calls[build], reps=reps)
-    mean = lambda b: float(np.mean([t for k, t in turns.items() if k.startswith(b)]))  # noqa: E731
-    row.update(ms_new_turns=mean("new"), ms_scalar_turns=mean("scalar"), ms_turns=turns,
-               phase_cycles_per_node={b: lq_phases(kid, d, args, shift)
-                                      for b, d in LQ_BUILDS.items()},
-               phase_clock_build_spills=LQ_CLOCK_SPILLS)
-    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in LQ_TURN_KEYS}))
+    builds = LQ_BUILDS[kid]
+    old = next(b for b in builds if b != "new")
+    calls = {b: lq_call(kid, d, args, shift) for b, d in builds.items()}
+    row["ms_turns"], means = in_turns(calls, (old, "new", "new", old), chained(reps))
+    row.update({f"ms_{b}_turns": ms for b, ms in means.items()},
+               phase_cycles_per_node={b: lq_phases(kid, b, args, shift) for b in builds},
+               phase_clock_build_spills=FORWARD_CLOCK_SPILLS if kid == "K3d" else LQ_CLOCK_SPILLS)
+    if kid == "K3d":
+        row.update(registers={b: {k: v["registers"] for k, v in FORWARD_PTXAS[b].items()}
+                              for b in builds},
+                   blocks_per_sm={b: forward_blocks_per_sm(d) for b, d in builds.items()})
+    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in lq_turn_keys(kid)}))
 
 
-def forward_turns(row, args, reps=50):
-    """K3d against the measuring build of the PR 2 kernel on the same
-    inputs, both launched straight through the C entry point into outputs
-    allocated once, timed in turns (row_warps, new, new, row_warps) in
-    chained calls: `ms_turns` and `ms_row_warps_turns` are the two builds'
-    means. `ms` stays kernel_row's time through the wrapper. Both builds'
-    phase clocks a node, registers and blocks an SM."""
-    calls = {b: forward_call(d, args) for b, d in FORWARD_BUILDS.items()}
-    turns = {}
-    for i, build in enumerate(("row_warps", "new", "new", "row_warps")):
-        turns[f"{build}_{i}"] = cuda_ms(calls[build], reps=reps)
-    mean = lambda b: float(np.mean([t for k, t in turns.items() if k.startswith(b)]))  # noqa: E731
-    row.update(ms_turns=mean("new"), ms_row_warps_turns=mean("row_warps"), turns=turns,
-               phase_cycles_per_node={b: forward_phases(b, args) for b in FORWARD_BUILDS},
-               registers={b: {k: v["registers"] for k, v in FORWARD_PTXAS[b].items()}
-                          for b in FORWARD_BUILDS},
-               blocks_per_sm={b: forward_blocks_per_sm(d) for b, d in FORWARD_BUILDS.items()},
-               phase_clock_build_spills=FORWARD_CLOCK_SPILLS)
-    log("[d] K3d in turns: " + json.dumps({k: row[k] for k in FORWARD_TURN_KEYS}))
+def lq_turn_keys(kid):
+    """The keys lq_turns adds to K3a's, K3b's or K3d's row."""
+    return (tuple(f"ms_{b}_turns" for b in LQ_BUILDS[kid]) + ("ms_turns", "phase_cycles_per_node")
+            + (("registers", "blocks_per_sm") if kid == "K3d" else ())
+            + ("phase_clock_build_spills",))
 
 
-# what forward_turns adds to K3d's row
-FORWARD_TURN_KEYS = ("ms_turns", "ms_row_warps_turns", "turns", "phase_cycles_per_node",
-                     "registers", "blocks_per_sm", "phase_clock_build_spills")
 # (Bb, N, inputs one float past an aligned base) of the seeded K3d checks, each
 # on every pattern: 7 x 67, one node, one scenario, one block past a wave of
 # 3 blocks on 132 SMs, and the 4-byte copies that stand in for the bulk
@@ -1123,37 +1092,39 @@ def misaligned(t):
     return out
 
 
+def wrapper_case(label, wrapper, args, ref, tol, off, **kw):
+    """One call of the counted wrapper `wrapper` on the float64 tensors
+    `args` cast to f32 (each moved one float past an aligned base if
+    `off`): fails unless it launched its kernel once and is within `tol` of
+    the f64 reference `ref`. Returns the relative error."""
+    import torch
+
+    f32 = [t.float().contiguous() for t in args]
+    before = wrapper.launches
+    outs = wrapper(*[misaligned(t) for t in f32] if off else f32, **kw)
+    torch.cuda.synchronize()
+    rel, _ = rel_err(outs, ref)
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{label}: the wrapper did not launch its kernel")
+    if not (rel <= tol and np.isfinite(rel)):
+        raise RuntimeError(f"{label}: relative error {rel:.3e} > {tol}")
+    return rel
+
+
 def check_forward_cases(dev):
     """(d) K3d through its wrapper on seeded inputs of every fm/act pattern
     (PROJECTION_PATTERNS) in each of FORWARD_CASES, each within SWEEP_REL_TOL
     of the f64 plain version."""
-    import torch
-
     from qm_door_torch.ops import lq as tl
 
-    wrapper = tl.riccati_forward_ll
     checks = {}
     for i, pattern in enumerate(PROJECTION_PATTERNS):
         for Bb, N, off in FORWARD_CASES:
             args = forward_data(Bb, N, pattern, 2000 + 10 * i + Bb, dev)
-            ref = tl.riccati_forward_ll_plain(*args)
-            f32 = [t.float().contiguous() for t in args]
             label = f"K3d {pattern} {Bb}x{N}{' misaligned' if off else ''}"
-            before = wrapper.launches
-            outs = wrapper(*[misaligned(t) for t in f32] if off else f32)
-            torch.cuda.synchronize()
-            rel, _ = rel_err(outs, ref)
-            if wrapper.launches != before + 1:
-                raise RuntimeError(f"{label}: the wrapper did not launch its kernel")
-            if not (rel <= SWEEP_REL_TOL and np.isfinite(rel)):
-                raise RuntimeError(f"{label}: relative error {rel:.3e} > {SWEEP_REL_TOL}")
-            checks[label] = rel
+            checks[label] = wrapper_case(label, tl.riccati_forward_ll, args,
+                                         tl.riccati_forward_ll_plain(*args), SWEEP_REL_TOL, off)
     log(f"[d] K3d on every fm pattern and edge case (relative error): ok {json.dumps(checks)}")
-
-
-# what projection_turns adds to K3a's and K3b's rows
-LQ_TURN_KEYS = ("ms_new_turns", "ms_scalar_turns", "ms_turns", "phase_cycles_per_node",
-                "phase_clock_build_spills")
 
 
 # (Bb, N, inputs one float past an aligned base) of the seeded projection
@@ -1189,16 +1160,8 @@ def check_projection_patterns(dev, shift):
                 label = f"{kid} {pattern} {Bb}x{N}{' misaligned' if off else ''}"
                 if kw.get("shift") == UNIT_SHIFT:
                     label += f" shift {UNIT_SHIFT}"
-                f32 = [t.float().contiguous() for t in args]
-                before = wrapper.launches
-                outs = wrapper(*[misaligned(t) for t in f32] if off else f32, **kw)
-                torch.cuda.synchronize()
-                rel, _ = rel_err(outs, ref)
-                if wrapper.launches != before + 1:
-                    raise RuntimeError(f"{label}: the wrapper did not launch its kernel")
-                if not (rel <= PROJECTION_REL_TOL and np.isfinite(rel)):
-                    raise RuntimeError(f"{label}: relative error {rel:.3e} > {PROJECTION_REL_TOL}")
-                checks[label] = rel
+                checks[label] = wrapper_case(label, wrapper, args, ref, PROJECTION_REL_TOL,
+                                             off, **kw)
     log(f"[d] K3a/K3b on every fm/act pattern (relative error): ok {json.dumps(checks)}")
 
 
@@ -1246,8 +1209,8 @@ def phase_new_kernels(dev, main):
         "K3b", "project_cost", shifted(tl.project_cost), shifted(tl.project_cost_plain),
         cost_args, tl.project_cost_plain(*f64(cost_args), shift=shift), PROJECTION_REL_TOL,
         4 * B * N * floats, B * N * fl, reps=50)
-    projection_turns(rows["K3a"], geom_args, shift)
-    projection_turns(rows["K3b"], cost_args, shift)
+    lq_turns(rows["K3a"], geom_args, shift)
+    lq_turns(rows["K3b"], cost_args, shift)
     check_projection_patterns(dev, shift)
     bwd_args = [A_bar, B_bar, d_bar, lxb, lub, lxxb, luub, luxb, c(lq.lxx_f), c(lq.lx_f)]
     ref = tl.riccati_backward_ll_plain(*f64(bwd_args))
@@ -1261,7 +1224,7 @@ def phase_new_kernels(dev, main):
         "K3d", "riccati_forward_ll", tl.riccati_forward_ll, tl.riccati_forward_ll_plain,
         fwd_args, tl.riccati_forward_ll_plain(*f64(fwd_args)), SWEEP_REL_TOL,
         forward_bytes(B, N), B * N * NODE_COST["K3d"][1], reps=50)
-    forward_turns(rows["K3d"], fwd_args)
+    lq_turns(rows["K3d"], fwd_args)
     check_forward_cases(dev)
 
     # K1-ll: lanes-last SPD solves at the gain shape, then ragged batches;
@@ -1495,10 +1458,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None, "rel_err": r["rel_err"],
             "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
             "flops": r["flops"]})
-        if kid in ("K3a", "K3b"):  # (d)'s scalar build in turns and both builds' clocks
-            kernels[-1].update({k: r[k] for k in LQ_TURN_KEYS})
-        if kid == "K3d":  # (d)'s PR 2 build in turns, both builds' clocks and occupancy
-            kernels[-1].update({k: r[k] for k in FORWARD_TURN_KEYS})
+        if kid in LQ_BUILDS:  # (d)'s measuring build in turns and both builds' clocks
+            kernels[-1].update({k: r[k] for k in lq_turn_keys(kid)})
         if kid in sweep_by_variant:  # K2, K3c: the (e) run's launches by variant, and (d)'s
             kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",

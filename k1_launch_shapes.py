@@ -29,7 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from chip_smoke import K1_REL_TOL, card_line, cuda_ms, graph_ms, log, spd_batch
+from chip_smoke import K1_REL_TOL, card_line, chained, graph_ms, in_turns, log, spd_batch
 
 ONE_WARP = ("QM_K1_ONE_WARP_BLOCKS",)
 GRID_STRIDE = ()  # the normal build
@@ -91,9 +91,13 @@ def inputs(rng, dev, batch, n, m):
             torch.tensor(Y64, dtype=torch.float32, device=dev), X_ref)
 
 
-def in_turns(calls, X_ref, order):
-    """Check each call against X_ref, then time them in `order` (keys of
-    `calls`, each twice); mean graph and events ms a call for each."""
+FORM_TURNS = ("one_warp", "grid_stride", "grid_stride", "one_warp")
+
+
+def checked_turns(calls, X_ref, order):
+    """Check each call against X_ref, then time them in turns in `order`
+    (keys of `calls`, each twice), in a CUDA graph and then in chained
+    calls; mean graph and events ms a call for each."""
     import torch
 
     for key, call in calls.items():
@@ -102,12 +106,11 @@ def in_turns(calls, X_ref, order):
         rel = (X.double() - X_ref).abs().max().item() / X_ref.abs().max().item()
         if not rel <= K1_REL_TOL:
             raise RuntimeError(f"{key}: relative error {rel:.3e} > {K1_REL_TOL}")
-    graph, events = {}, {}
-    for key in order:
-        graph.setdefault(key, []).append(graph_ms(calls[key]))
-        events.setdefault(key, []).append(cuda_ms(calls[key], reps=50))
-    return {key: {"graph_ms": float(np.mean(graph[key])), "events_ms": float(np.mean(events[key])),
-                  "graph_turns": graph[key]} for key in calls}
+    graph_turns, graph = in_turns(calls, order, graph_ms)
+    _, events = in_turns(calls, order, chained(50))
+    return {key: {"graph_ms": graph[key], "events_ms": events[key],
+                  "graph_turns": [ms for turn, ms in graph_turns.items()
+                                  if turn.rsplit("_", 1)[0] == str(key)]} for key in calls}
 
 
 def main():
@@ -133,7 +136,7 @@ def main():
             A, Y, X_ref = inputs(rng, dev, batch, n, m)
             calls = {"one_warp": solver(ONE_WARP, variant, A, Y),
                      "grid_stride": solver(GRID_STRIDE, variant, A, Y)}
-            row = in_turns(calls, X_ref, ("one_warp", "grid_stride", "grid_stride", "one_warp"))
+            row = checked_turns(calls, X_ref, FORM_TURNS)
             row = {"variant": variant, "batch": batch, "n": n, "m": m, **row}
             log(json.dumps(row))
             result["launch_form"][f"{variant}_{batch}"] = row
@@ -141,7 +144,7 @@ def main():
     A, Y, X_ref = (t.permute(1, 2, 0).contiguous() for t in inputs(rng, dev, BATCHES[0], n, m))
     calls = {form: solver(d, "reg32", A, Y, lanes_last=True)
              for form, d in (("one_warp", ONE_WARP), ("grid_stride", GRID_STRIDE))}
-    row = in_turns(calls, X_ref, ("one_warp", "grid_stride", "grid_stride", "one_warp"))
+    row = checked_turns(calls, X_ref, FORM_TURNS)
     row = {"variant": "reg32", "lanes_last": True, "batch": BATCHES[0], "n": n, "m": m, **row}
     log(json.dumps(row))
     result["launch_form"][f"reg32_lanes_last_{BATCHES[0]}"] = row
@@ -150,7 +153,7 @@ def main():
     A, Y, X_ref = inputs(rng, dev, BATCHES[-1], n, m)
     calls = {k: solver(d, "reg16", A, Y) for k, d in MIN_BLOCKS.items()}
     order = (4, 3, 5, 6, 6, 5, 3, 4)
-    result["reg16_min_blocks"] = {str(k): v for k, v in in_turns(calls, X_ref, order).items()}
+    result["reg16_min_blocks"] = {str(k): v for k, v in checked_turns(calls, X_ref, order).items()}
     log(json.dumps({"reg16_min_blocks": result["reg16_min_blocks"]}))
     log(card_line())
     print(json.dumps(result))

@@ -26,8 +26,7 @@ nodes (chip_smoke.forward_data, contacts mixed), each held to
 SWEEP_REL_TOL of the f64 plain version, beside its bound; then both
 builds' registers and spills (ptxas), blocks an SM
 (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and phase clocks a node at
-B = 384; then each build of FORWARD_SHAPES (ring depth -DQM_FWD_STAGES,
-blocks an SM -DQM_FWD_BLOCKS) against the normal build in turns at B = 384.
+B = 384.
 
 Prints one JSON line per measurement, the card's name and power limit, and
 a last line with every result. Exits non-zero without a CUDA device.
@@ -39,20 +38,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from chip_smoke import (FORWARD_BUILDS, PROJECTION_REL_TOL, SWEEP_REL_TOL, HBM_BYTES_PER_S,
-                        card_line, cuda_ms, forward_blocks_per_sm, forward_bytes, forward_call,
-                        forward_data, forward_phases, forward_ptxas, kernel_registers,
-                        kernel_spills, log, lq_instance, lq_project_call, projection_data,
-                        rel_err)
+                        card_line, chained, forward_blocks_per_sm, forward_bytes, forward_data,
+                        forward_ptxas, in_turns, kernel_registers, kernel_spills, log, lq_call,
+                        lq_instance, lq_phases, projection_data, rel_err)
 
 PATH = (384, 67)
 SHIFT = 1e-5
-NORMAL = ()  # 5 blocks an SM for each projection kernel; K3d's 4 stages, 3 blocks
+NORMAL = ()  # 5 blocks an SM for each projection kernel
 SHAPES = {"K3a": {"geom_blocks4": ("QM_LQ_GEOM_BLOCKS=4",),
                   "geom_blocks6": ("QM_LQ_GEOM_BLOCKS=6",)},
           "K3b": {"cost_blocks4": ("QM_LQ_COST_BLOCKS=4",)}}
 FORWARD_BATCHES = (132, 264, 384, 396, 768)
-FORWARD_SHAPES = {"stages3": ("QM_FWD_STAGES=3",), "stages5": ("QM_FWD_STAGES=5",),
-                  "stages3_blocks4": ("QM_FWD_STAGES=3", "QM_FWD_BLOCKS=4")}
 
 
 def inputs(dev):
@@ -71,20 +67,19 @@ def inputs(dev):
             "K3b": (f32(c64), tl.project_cost_plain(*c64, shift=SHIFT))}
 
 
-def in_turns(calls, reps=50):
-    """Each call timed in chained calls, in turns: the order of `calls`,
-    then reversed. Returns {name: [ms, ms]}."""
-    turns = {name: [] for name in calls}
-    for name in list(calls) + list(calls)[::-1]:
-        turns[name].append(cuda_ms(calls[name], reps=reps))
-    return turns
-
-
 def checked(kid, name, out, ref, tol):
     rel, err = rel_err(out, ref)
     if not (rel <= tol and np.isfinite(rel)):
         raise RuntimeError(f"{kid} {name}: relative error {rel:.3e}")
     return {"rel_err": rel, "max_abs_err": err}
+
+
+def timed(row, calls):
+    """Time `calls` ({build: call}) in turns (their order, then reversed) into
+    `row`: each build's mean as row[build]["ms"], every turn as row["ms_turns"]."""
+    row["ms_turns"], means = in_turns(calls, list(calls) + list(calls)[::-1], chained(50))
+    for build, ms in means.items():
+        row[build]["ms"] = ms
 
 
 def projection_shapes(dev, kids):
@@ -97,18 +92,17 @@ def projection_shapes(dev, kids):
         if kid not in kids:
             continue
         builds = {"normal": NORMAL, **SHAPES[kid]}
-        calls = {b: lq_project_call(kid, d, args, SHIFT) for b, d in builds.items()}
+        calls = {b: lq_call(kid, d, args, SHIFT) for b, d in builds.items()}
         row = {b: checked(kid, b, call(), ref, PROJECTION_REL_TOL) for b, call in calls.items()}
-        for build, ms in in_turns(calls).items():
-            row[build].update(ms_turns=ms, ms=float(np.mean(ms)))
+        timed(row, calls)
         log(json.dumps({kid: row}))
         result[kid] = row
     return result
 
 
-def forward_shapes(dev, reports):
-    """K3d: the wave table of the normal and PR 2 builds, both builds'
-    occupancy and phase clocks at PATH, and FORWARD_SHAPES in turns."""
+def forward_waves(dev, reports):
+    """K3d: the wave table of the normal and PR 2 builds, and both builds'
+    registers, occupancy and phase clocks at PATH."""
     from qm_door_torch.ops import lq as tl
 
     Bmax, N = max(FORWARD_BATCHES), PATH[1]
@@ -119,31 +113,20 @@ def forward_shapes(dev, reports):
     waves = {}
     for Bb in FORWARD_BATCHES:
         args, want = at(Bb), [r[:Bb] for r in ref]
-        calls = {b: forward_call(FORWARD_BUILDS[b], args) for b in ("row_warps", "new")}
+        calls = {b: lq_call("K3d", FORWARD_BUILDS[b], args) for b in ("row_warps", "new")}
         row = {b: checked("K3d", f"{b} B={Bb}", call(), want, SWEEP_REL_TOL)
                for b, call in calls.items()}
-        for build, ms in in_turns(calls).items():
-            row[build].update(ms_turns=ms, ms=float(np.mean(ms)))
+        timed(row, calls)
         row["bound_ms"] = forward_bytes(Bb, N) / HBM_BYTES_PER_S * 1e3
         log(json.dumps({"K3d waves": {Bb: row}}))
         waves[Bb] = row
     args = at(PATH[0])
     builds = {b: {"ptxas": forward_ptxas(reports["lq_forward", d]),
                   "blocks_per_sm": forward_blocks_per_sm(d),
-                  "phase_cycles_per_node": forward_phases(b, args)}
+                  "phase_cycles_per_node": lq_phases("K3d", b, args)}
               for b, d in FORWARD_BUILDS.items()}
     log(json.dumps({"K3d builds": builds}))
-    calls = {"normal": forward_call(NORMAL, args)}
-    calls.update({b: forward_call(d, args) for b, d in FORWARD_SHAPES.items()})
-    shapes = {b: checked("K3d", b, call(), [r[:PATH[0]] for r in ref], SWEEP_REL_TOL)
-              for b, call in calls.items()}
-    for build, ms in in_turns(calls).items():
-        defines = FORWARD_SHAPES.get(build, NORMAL)
-        shapes[build].update(ms_turns=ms, ms=float(np.mean(ms)),
-                             ptxas=forward_ptxas(reports["lq_forward", defines]),
-                             blocks_per_sm=forward_blocks_per_sm(defines))
-    log(json.dumps({"K3d shapes": shapes}))
-    return {"waves": waves, "builds": builds, "shapes": shapes}
+    return {"waves": waves, "builds": builds}
 
 
 def main():
@@ -168,7 +151,6 @@ def main():
     if "K3d" in kids:
         libs += [("lq_forward", d) for d in FORWARD_BUILDS.values()]
         libs += [("lq_forward", d + (FWD_PHASE_CLOCKS,)) for d in FORWARD_BUILDS.values()]
-        libs += [("lq_forward", d) for d in FORWARD_SHAPES.values()]
     with ThreadPoolExecutor(len(libs)) as pool:
         reports = dict(zip(libs, pool.map(lambda lib: cuda_build.build(*lib), libs)))
     ptxas = {}
@@ -183,7 +165,7 @@ def main():
     log(json.dumps({"ptxas": ptxas}))
     result = {"ptxas": ptxas, **projection_shapes(dev, kids)}
     if "K3d" in kids:
-        result["K3d"] = forward_shapes(dev, reports)
+        result["K3d"] = forward_waves(dev, reports)
     log(card_line())
     print(json.dumps(result))
     return 0

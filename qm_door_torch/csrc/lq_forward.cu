@@ -48,9 +48,9 @@
 //
 // Builds: -DQM_FWD_ROW_WARPS compiles the PR 2 kernel instead (a measuring
 // build: chip_smoke.py (d) times the two in turns; nothing at run time
-// chooses it); -DQM_FWD_PHASE_CLOCKS adds the phase clocks to either;
-// -DQM_FWD_STAGES, -DQM_FWD_BLOCKS set the ring depth and the blocks an
-// SM of the normal build (lq_launch_shapes.py).
+// chooses it); -DQM_FWD_PHASE_CLOCKS adds the phase clocks to either. A
+// ring of 3 or 5 stages, or 4 blocks an SM, measured the same as 4 stages
+// at 3 blocks (within 0.3%, PERF.md §6), so both stay fixed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -210,16 +210,8 @@ const void* kernel_for(bool) { return (const void*)forward_kernel; }
 
 using namespace bulk_copy;
 
-// The ring depth and the blocks an SM: -DQM_FWD_STAGES, -DQM_FWD_BLOCKS
-// are measuring builds (lq_launch_shapes.py).
-#ifndef QM_FWD_STAGES
-#define QM_FWD_STAGES 4
-#endif
-#ifndef QM_FWD_BLOCKS
-#define QM_FWD_BLOCKS 3
-#endif
-constexpr int kStages = QM_FWD_STAGES;
-constexpr int kBlocks = QM_FWD_BLOCKS;
+constexpr int kStages = 4;  // the ring: the node being computed and 3 in flight
+constexpr int kBlocks = 3;  // blocks an SM: 396 scenarios resident at once
 constexpr int kThreads = 128;
 constexpr int kComputeThreads = 96;  // warps 0-2; warp 3 produces
 constexpr int kProducer = 3;

@@ -26,8 +26,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from chip_smoke import (SWEEP_REL_TOL, card_line, cuda_ms, kernel_registers, kernel_spills,
-                        log, rel_err, sweep_data, sweep_instance)
+from chip_smoke import (SWEEP_REL_TOL, card_line, chained, in_turns, kernel_registers,
+                        kernel_spills, log, rel_err, sweep_data, sweep_instance)
 
 NORMAL = ()  # 128 threads, 3 blocks an SM, loads a node ahead
 SHAPES = {"128x3": NORMAL, "128x3_sync_loads": ("QM_SWEEP_SYNC_LOADS",),
@@ -97,11 +97,10 @@ def main():
             rel, _ = rel_err(call(), ref)
             if not rel <= SWEEP_REL_TOL:
                 raise RuntimeError(f"{kid} {key}: relative error {rel:.3e} > {SWEEP_REL_TOL}")
-            row[key] = {"rel_err": rel, "ms_turns": []}
-        for key in list(calls) + list(calls)[::-1]:
-            row[key]["ms_turns"].append(cuda_ms(calls[key], reps=20))
-        for key in row:
-            row[key]["ms"] = float(np.mean(row[key]["ms_turns"]))
+            row[key] = {"rel_err": rel}
+        row["ms_turns"], means = in_turns(calls, list(calls) + list(calls)[::-1], chained(20))
+        for key, ms in means.items():
+            row[key]["ms"] = ms
         log(json.dumps({kid: row}))
         result[kid] = row
     log(card_line())
