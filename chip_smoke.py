@@ -33,7 +33,8 @@ Phases:
       profiler cost).
   (c) cross precision: 3 steps at B = 4 with lin_tangents="analytic", the
       port on the GPU in f32 against the port on the CPU in f64
-      (max|dX| <= 2e-5, max|dU| <= 2.5e-3 N).
+      (max|dX| <= 2e-5, max|dU| <= 2.5e-3 N); the CPU run (bm_k1's plain
+      path) is made once a problem and serves (e)'s and (g)'s checks too.
   (d) kernels of the other LQ backends, on (b)'s own warm-iterate data at
       B = 384, N = 67: K2 (fused backward sweep), K3a/K3b (projection;
       each also timed in turns (scalar, new, new, scalar) against the
@@ -73,10 +74,27 @@ Phases:
   (f) backends in mirrored pairs: bm_k1, bm_fused, lq_fused, lq_fused,
       bm_fused, bm_k1, 5 steps each on the problems (b) and (e) built, host
       ms a step of each turn and each backend's mean.
+  (g) force tracking (nu = 36) at full width: (b)'s problem with the stage
+      widened (grasp from t >= 0.3 s, wrench reference [4, 0, -9, 0, 0,
+      0.4]) and U from weight_compensating_input_ft; bm_k1 and bm_fused
+      driven as (b) drives bm_k1 (exact launches a step: bm_k1 K1 68 = 1
+      reg16 + 67 smem; bm_fused K1 1 reg16 + K2 1 smem), mean violation <=
+      1e-5, the off-grasp wrench exactly 0, per-stage host ms and the card's
+      idle share, and (c)'s cross-precision check for each; K1's smem
+      variant at 384 x 36 x 31 (node 0's gain system at the warm iterate,
+      within 1e-4 of f64) and K2's smem variant at 384 x 67 x 30 x 36
+      (within 1e-3 of f64), each timed beside its bound and its plain
+      version (K1 also beside torch.linalg); the other options on bm_k1, a
+      cold and 2 warm steps each with the launches checked
+      (lin_tangents f32 and bf16, sensitivity rk2, arm_locked on
+      quad_only_config, per-scenario stage data); one SqpSolver.solve
+      (nu = 30) and one warm-started from it, host ms and K1 launches (68 a
+      solve: 1 reg16 + 67 reg32).
 
 Every launch counter is set to 0 just before each backend's steps and read
-just after. The line before the last is {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}.
+just after. The line before the last is {"kernels": [...]} (K1 and K2 a
+second time, on (g)'s force-tracking path); the last line is {"ok": true,
+"device": {...}}.
 """
 import json
 import os
@@ -173,12 +191,14 @@ def device_busy(fn):
     """One call of `fn` under torch.profiler: the union of the device
     intervals it traced (kernels, copies, fills) in ms, their count, and the
     five kernels with the most device time. kernel_ms is None where the
-    profiler saw no device activity (no CUPTI)."""
+    profiler saw no device activity (no CUPTI). Only the device is traced:
+    tracing the host's operators too made each step's profile tens of
+    seconds longer and changed none of these numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
@@ -493,27 +513,45 @@ def check_k1_edges(dev, rng):
     log(f"[a] K1 edge cases (variant each ran) and refusals: ok {json.dumps(ran)}")
 
 
-def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1"):
+# force tracking, phase (g): the grasp from FT_GRASP_FROM s on, the wrench
+# reference of tests/test_batched_sqp.py:82-85
+FT_GRASP_FROM = 0.3
+FT_WRENCH_REF = (4.0, 0.0, -9.0, 0.0, 0.0, 0.4)
+# the start times of the gait the scenarios take in turn with per-scenario
+# stage data (shared_stage=False)
+STAGE_T0S = (0.0, 0.1, 0.2, 0.3)
+
+
+def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1", sensitivity="frozen",
+                 force_tracking=False, quad_only=False, shared_stage=True, t0=0.0):
     """The bench problem: AlienGo+Z1, 1 s / 67-node trot horizon, targets at
     the nominal pose, seed-0 initial-state perturbations; BatchedMpc on the
-    given LQ backend."""
+    given LQ backend. Options: the force-tracking problem (nu = 36, the
+    stage widened with the grasp from FT_GRASP_FROM s and the wrench
+    reference FT_WRENCH_REF), the quad-only config (arm_locked), per-scenario
+    stage data (the trot from the STAGE_T0S in turn); the horizon from t0 s
+    on. Returns (mpc, stage,
+    x_batch, X, U): the cold start, U from weight_compensating_input_ft
+    (zero wrench) on the force-tracking problem."""
     import torch
 
-    from qm_door_torch.config import default_config
+    from qm_door_torch.config import default_config, quad_only_config
     from qm_door_torch.models import kinematics, spatial
     from qm_door_torch.models.model import aliengo_z1
+    from qm_door_torch.ocp import force
     from qm_door_torch.ocp.gait import GAIT_LIBRARY, GaitSchedule
-    from qm_door_torch.ocp.problem import build_stage_data, make_ocp_config
+    from qm_door_torch.ocp.problem import StageData, build_stage_data, make_ocp_config
     from qm_door_torch.ocp.reference import TargetTrajectories
     from qm_door_torch.parallel.batched import BatchedMpc
     from qm_door_torch.solver.sqp import SqpSolver
 
-    cfg = default_config()
+    cfg = quad_only_config() if quad_only else default_config()
     cfg.sqp.linesearch_steps = 2
     cfg.sqp.lin_tangents = lin_tangents
-    cfg.sqp.sensitivity = "frozen"
+    cfg.sqp.sensitivity = sensitivity
     model = aliengo_z1(dtype=dtype, device=dev)
-    solver = SqpSolver(model, make_ocp_config(model, cfg), cfg)
+    ocp = (force.make_ocp_config_ft if force_tracking else make_ocp_config)(model, cfg)
+    solver = SqpSolver(model, ocp, cfg)
     x0 = torch.tensor(cfg.initial_state(), dtype=dtype, device=dev)
     R_ee, p_ee = kinematics.ee_pose(model, x0[6:30])
     tstate = torch.cat([x0, p_ee, spatial.rot_to_quat(R_ee)])
@@ -522,11 +560,28 @@ def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1"):
         torch.stack([tstate, tstate]), torch.zeros((2, 30), dtype=dtype, device=dev))
     sched = GaitSchedule()
     sched.insert_template(GAIT_LIBRARY["trot"], 0.0, 5.0)
-    stage = build_stage_data(model, cfg, sched, targets, 0.0)
+    if shared_stage:
+        stage = build_stage_data(model, cfg, sched, targets, t0)
+    else:
+        stages = [build_stage_data(model, cfg, sched, targets, t0 + t) for t in STAGE_T0S]
+        pick = torch.arange(batch, device=dev) % len(stages)
+        stage = StageData(**{k: torch.stack([getattr(s, k) for s in stages])[pick]
+                             for k in vars(stages[0]) if getattr(stages[0], k) is not None})
+    if force_tracking:
+        grasp = (stage.times >= FT_GRASP_FROM).to(dtype)
+        stage = force.widen_stage_data(
+            stage, grasp, torch.tensor(FT_WRENCH_REF, dtype=dtype, device=dev).expand(
+                stage.times.shape[0], 6))
     perturb = np.random.default_rng(0).normal(size=(BATCH, 30)) * PERTURBATION
     x0_np = cfg.initial_state().astype(np.float32 if dtype == torch.float32 else np.float64)
     x_batch = torch.tensor(x0_np[None] + perturb[:batch], dtype=dtype, device=dev)
-    return BatchedMpc(solver, backend=backend), stage, x_batch
+    mpc = BatchedMpc(solver, shared_stage=shared_stage, backend=backend)
+    X, U = mpc.cold_start(stage, x_batch)
+    if force_tracking:
+        N = solver.n_intervals
+        U = force.weight_compensating_input_ft(model, stage.contact_flags[:N]).expand(
+            batch, N, 36).clone()
+    return mpc, stage, x_batch, X, U
 
 
 # launches a step of each LQ backend, and K1's by variant; every other
@@ -539,18 +594,27 @@ SWEEP_VARIANTS_PER_STEP = {"bm_k1": {}, "bm_fused": {"K2": {"reg": 1}},
                            "lq_fused": {"K3c": {"reg": 1}}}
 
 
-def drive(dev, backend, tag):
-    """BatchedMpc(backend) at B = 384: one cold and WARM_STEPS warm steps
+def drive(dev, backend, tag, problem=None, warm_steps=WARM_STEPS, expect=None,
+          viol_max=VIOLATION_MAX):
+    """BatchedMpc(backend) at B = 384: one cold and `warm_steps` warm steps
     with the launch counters set to 0 just before and read just after;
-    checks the launches a step and the mean violation. Returns the run's
-    numbers and its final state."""
+    checks the launches a step and the mean violation. `problem`:
+    make_problem's (mpc, stage, x_batch, X, U), by default (b)'s problem on
+    `backend`; `expect`: the launches, K1's by variant and the sweeps' by
+    variant a step, by default LAUNCHES_PER_STEP's and the two tables
+    beside it; `viol_max` None: the violation is only required finite.
+    Returns the run's numbers and its final state."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve
     from qm_door_torch.solver import batched_sqp
 
-    mpc, stage, x_batch = make_problem(dev, torch.float32, BATCH, "analytic_bf16", backend)
-    X, U = mpc.cold_start(stage, x_batch)
+    if problem is None:
+        problem = make_problem(dev, torch.float32, BATCH, "analytic_bf16", backend)
+    mpc, stage, x_batch, X, U = problem
+    per_step, k1_per_step, sweep_per_step = expect or (
+        LAUNCHES_PER_STEP[backend], K1_VARIANTS_PER_STEP[backend],
+        SWEEP_VARIANTS_PER_STEP[backend])
     # count the linesearch's trajectory evaluations (1 or 2 a step)
     evaluate, evals = batched_sqp.evaluate_trajectory, []
     batched_sqp.evaluate_trajectory = lambda *a: evals.append(1) or evaluate(*a)
@@ -560,9 +624,11 @@ def drive(dev, backend, tag):
         X, U, stats = mpc.step(stage, x_batch, X, U)
         torch.cuda.synchronize()
         cold_s = time.time() - t0
+        viols = [stats[1].mean()]  # on the card: read after the timed steps
         t0 = time.time()
-        for _ in range(WARM_STEPS):
+        for _ in range(warm_steps):
             X, U, stats = mpc.step(stage, x_batch, X, U)
+            viols.append(stats[1].mean())
         torch.cuda.synchronize()
         elapsed = time.time() - t0
         launches = read_launches()
@@ -571,10 +637,10 @@ def drive(dev, backend, tag):
                           for kid, w in sweep_wrappers().items()}
     finally:
         batched_sqp.evaluate_trajectory = evaluate
-    steps = WARM_STEPS + 1
-    want = {kid: LAUNCHES_PER_STEP[backend].get(kid, 0) * steps for kid in launches}
-    want_k1 = {v: K1_VARIANTS_PER_STEP[backend].get(v, 0) * steps for v in k1_variants}
-    want_sweep = {kid: {v: SWEEP_VARIANTS_PER_STEP[backend].get(kid, {}).get(v, 0) * steps
+    steps = warm_steps + 1
+    want = {kid: per_step.get(kid, 0) * steps for kid in launches}
+    want_k1 = {v: k1_per_step.get(v, 0) * steps for v in k1_variants}
+    want_sweep = {kid: {v: sweep_per_step.get(kid, {}).get(v, 0) * steps
                         for v in counts} for kid, counts in sweep_variants.items()}
     viol = stats[1].mean().item()
     finite = bool(torch.isfinite(X).all() and torch.isfinite(U).all())
@@ -582,14 +648,14 @@ def drive(dev, backend, tag):
         raise RuntimeError(f"{backend}: launches {launches}, K1 by variant {k1_variants}, "
                            f"sweeps by variant {sweep_variants} in {steps} steps, expected "
                            f"{want}, {want_k1}, {want_sweep}")
-    if not (finite and np.isfinite(viol) and viol <= VIOLATION_MAX):
+    if not (finite and np.isfinite(viol) and (viol_max is None or viol <= viol_max)):
         raise RuntimeError(f"{backend}: finite={finite}, mean violation {viol:.3e}")
     log(f"[{tag}] {backend}: launches in {steps} steps {launches}, K1 by variant "
         f"{k1_variants}, sweeps by variant {sweep_variants}")
     return dict(mpc=mpc, stage=stage, x_batch=x_batch, X=X, U=U, cold_s=cold_s,
                 elapsed=elapsed, launches=launches, k1_variants=k1_variants,
-                sweep_variants=sweep_variants, steps=steps, viol=viol,
-                linesearch_evals=len(evals))
+                sweep_variants=sweep_variants, steps=steps, warm_steps=warm_steps, viol=viol,
+                viol_by_step=torch.stack(viols).tolist(), linesearch_evals=len(evals))
 
 
 def timer(stage_ms, device):
@@ -623,21 +689,22 @@ def run_result(run, backend, step_device):
     """The bench.py-style result line of one backend's run."""
     import torch
 
-    elapsed, steps = run["elapsed"], run["steps"]
-    step_ms = 1e3 * elapsed / WARM_STEPS
+    elapsed, steps, warm = run["elapsed"], run["steps"], run["warm_steps"]
+    step_ms = 1e3 * elapsed / warm
     busy_ms = step_device["kernel_ms"]
     return {
         "metric": "mpc_solves_per_s",
-        "value": BATCH * WARM_STEPS / elapsed,
+        "value": BATCH * warm / elapsed,
         "unit": "solves/s",
-        "vs_baseline": BATCH * WARM_STEPS / elapsed / 10000.0,
+        "vs_baseline": BATCH * warm / elapsed / 10000.0,
         "batch": BATCH,
-        "reps": WARM_STEPS,
-        "per_solve_us": 1e6 * elapsed / (BATCH * WARM_STEPS),
+        "reps": warm,
+        "per_solve_us": 1e6 * elapsed / (BATCH * warm),
         "compile_s": run["cold_s"],
         "backend": f"{backend}_cuda",
         "config": "combined",
         "mean_violation": run["viol"],
+        "mean_violation_by_step": run["viol_by_step"],
         "device": torch.cuda.get_device_name(0),
         "impl": "torch",
         "step_ms": step_ms,
@@ -649,34 +716,45 @@ def run_result(run, backend, step_device):
     }
 
 
-def phase_main_path(dev):
-    """(b) BatchedMpc (bm_k1) at full width, K1 launch count, per-stage times
-    and device profile. Returns the run and the LQ data at its final
-    (warm) iterate for (d) and (e)."""
-    import torch
-
+def stage_split(run, riccati="k1"):
+    """Per-stage split of a bm_k1 / bm_fused step at a driven run's warm
+    iterate (separate timed calls, after its launch count was read): host
+    ms, device busy ms and stream span of linearize, project, riccati and
+    one linesearch candidate; then one whole step profiled. Returns the
+    stage times, the device profile and the LQ data there."""
     from qm_door_torch.solver.riccati import lqr_solve_batched
     from qm_door_torch.solver.sqp import evaluate_trajectory
     from qm_door_torch.solver.transcription import linearize_ocp, project_ocp_batched
 
-    run = drive(dev, "bm_k1", "b")
     mpc, stage, x_batch, X, U = (run[k] for k in ("mpc", "stage", "x_batch", "X", "U"))
-
-    # per-stage split at the warm iterate (separate timed calls, after the
-    # launch count was read)
     s, solver = mpc.solver.settings, mpc.solver
-    N = solver.n_intervals
+    B, N = U.shape[:2]
     stage_ms, device = {}, {}
     timed = timer(stage_ms, device)
     lq = timed("linearize", lambda: linearize_ocp(
-        solver.model, solver.ocp, stage, s.dt, X, U,
-        sensitivity=s.sensitivity, tangents=s.lin_tangents))
-    flags = stage.contact_flags[:N].expand(BATCH, N, 4)
-    plq = timed("project", lambda: project_ocp_batched(lq, flags, U, shift=s.hessian_shift))
-    dX, dU, _, _ = timed("riccati", lambda: lqr_solve_batched(plq, x_batch - X[:, 0]))
+        solver.model, solver.ocp, stage, s.dt, X, U, sensitivity=s.sensitivity,
+        tangents=s.lin_tangents, stage_batched=not mpc.shared_stage))
+    flags = stage.contact_flags[..., :N, :].expand(B, N, 4)
+    grasp = None if stage.grasp_flags is None else stage.grasp_flags[..., :N].expand(B, N)
+    plq = timed("project", lambda: project_ocp_batched(
+        lq, flags, U, shift=s.hessian_shift, grasp=grasp, arm_locked=solver.ocp.arm_locked))
+    dX, dU, _, _ = timed(f"riccati_{riccati}", lambda: lqr_solve_batched(
+        plq, x_batch - X[:, 0], backend=riccati))
     timed("linesearch_eval_per_candidate", lambda: evaluate_trajectory(
         solver.model, solver.ocp, stage, s.dt, X + dX, U + dU))
     device["step"] = device_busy(lambda: mpc.step(stage, x_batch, X, U))
+    return stage_ms, device, dict(lq=lq, plq=plq, flags=flags, dX=dX, dU=dU,
+                                  shift=s.hessian_shift)
+
+
+def phase_main_path(dev):
+    """(b) BatchedMpc (bm_k1) at full width, K1 launch count, per-stage times
+    and device profile. Returns the run and the LQ data at its final
+    (warm) iterate for (d) and (e)."""
+    run = drive(dev, "bm_k1", "b")
+    stage_ms, device, lq_data = stage_split(run)
+    stage_ms["riccati"] = stage_ms.pop("riccati_k1")
+    device["riccati"] = device.pop("riccati_k1")
 
     result = run_result(run, "bm_k1", device["step"])
     result.update(stage_ms=stage_ms, device_profile=device,
@@ -684,7 +762,7 @@ def phase_main_path(dev):
                   k1_launches_per_step=run["launches"]["K1"] / run["steps"],
                   k1_launches_by_variant=run["k1_variants"])
     log("[b] " + json.dumps(result))
-    return dict(run=run, lq=lq, plq=plq, flags=flags, dX=dX, dU=dU, shift=s.hessian_shift)
+    return dict(run=run, **lq_data)
 
 
 def rel_err(outs, refs):
@@ -998,7 +1076,8 @@ def check_sweep_at_shapes(dev):
     log(f"[d] sweep shapes (variant, relative error): ok {json.dumps(ran)}")
 
 
-def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20, **extra):
+def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20, tag="d",
+               **extra):
     """Hold one kernel against its plain version in f64 on the same inputs,
     time kernel and plain f32 version, and compute its bound."""
     import torch
@@ -1018,7 +1097,7 @@ def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
                bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations", **extra)
-    log("[d] " + json.dumps(row))
+    log(f"[{tag}] " + json.dumps(row))
     return row, outs
 
 
@@ -1284,7 +1363,7 @@ def phase_new_kernels(dev, main):
     return rows
 
 
-def phase_backends(dev, main):
+def phase_backends(dev, main, refs):
     """(e) BatchedMpc on bm_fused and lq_fused, driven as (b) drives bm_k1;
     their LQ stage at (b)'s iterate against bm_k1's step there."""
     import torch
@@ -1322,7 +1401,7 @@ def phase_backends(dev, main):
                       dX_vs_bm_k1=(dX - main["dX"]).abs().max().item(),
                       dU_vs_bm_k1=(dU - main["dU"]).abs().max().item())
         log("[e] " + json.dumps(result))
-        phase_cross_precision(dev, backend, "e")
+        phase_cross_precision(dev, refs, backend, "e")
         launches.update({k: v for k, v in run["launches"].items() if v})
         by_variant.update({kid: counts for kid, counts in run["sweep_variants"].items()
                            if run["launches"][kid]})
@@ -1357,22 +1436,35 @@ def phase_pairs(runs):
     log("[f] " + json.dumps(row))
 
 
-def phase_cross_precision(dev, backend="bm_k1", tag="c"):
-    """(c) 3 steps at B = 4, GPU f32 against CPU f64 (lin_tangents="analytic")."""
+def cross_steps(device, dtype, backend, force_tracking):
+    """3 steps at B = 4 (lin_tangents="analytic") from the cold start:
+    (X, U, stats) in f64 on the CPU."""
+    mpc, stage, x_batch, X, U = make_problem(device, dtype, 4, "analytic", backend,
+                                             force_tracking=force_tracking)
+    for _ in range(3):
+        X, U, stats = mpc.step(stage, x_batch, X, U)
+    return X.double().cpu(), U.double().cpu(), [t.double().cpu() for t in stats]
+
+
+def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", force_tracking=False):
+    """(c) 3 steps at B = 4, GPU f32 against CPU f64 (lin_tangents="analytic"),
+    on the 30-input problem or the force-tracking one (max|dU| over all 36
+    inputs there). The CPU f64 run takes bm_k1's path (the plain solves),
+    once a problem, and serves every backend's check: in f64 the backends
+    agree to 1e-8 (tests/test_torch_batched_sqp.py). `refs` keeps the CPU
+    runs made, by problem."""
     import torch
 
-    out = {}
-    for name, device, dtype in (("gpu_f32", dev, torch.float32),
-                                ("cpu_f64", torch.device("cpu"), torch.float64)):
-        mpc, stage, x_batch = make_problem(device, dtype, 4, "analytic", backend)
-        X, U = mpc.cold_start(stage, x_batch)
-        for _ in range(3):
-            X, U, stats = mpc.step(stage, x_batch, X, U)
-        out[name] = (X.double().cpu(), U.double().cpu(), [t.double().cpu() for t in stats])
+    if force_tracking not in refs:
+        refs[force_tracking] = cross_steps(torch.device("cpu"), torch.float64, "bm_k1",
+                                           force_tracking)
+    out = {"gpu_f32": cross_steps(dev, torch.float32, backend, force_tracking),
+           "cpu_f64": refs[force_tracking]}
     dX = (out["gpu_f32"][0] - out["cpu_f64"][0]).abs().max().item()
     dU = (out["gpu_f32"][1] - out["cpu_f64"][1]).abs().max().item()
     dF = (out["gpu_f32"][1][..., :12] - out["cpu_f64"][1][..., :12]).abs().max().item()
-    row = {"backend": backend, "X_err_max": dX, "U_err_max": dU, "force_err_max_N": dF,
+    row = {"backend": backend, "nu": int(out["cpu_f64"][1].shape[-1]), "X_err_max": dX,
+           "U_err_max": dU, "force_err_max_N": dF,
            "cost": {k: v[2][0].tolist() for k, v in out.items()},
            "violation": {k: v[2][1].tolist() for k, v in out.items()},
            "alpha": {k: v[2][2].tolist() for k, v in out.items()}}
@@ -1380,6 +1472,190 @@ def phase_cross_precision(dev, backend="bm_k1", tag="c"):
     if not (dX <= CROSS_DX_MAX and dU <= CROSS_DU_MAX):
         raise RuntimeError(f"cross precision ({backend}): max|dX| {dX:.3e} (<= {CROSS_DX_MAX}), "
                            f"max|dU| {dU:.3e} (<= {CROSS_DU_MAX})")
+
+
+# launches a step of the force-tracking problem (nu = 36): the gain solves
+# go to K1's smem variant (n = 36 > 32), the sweep to K2's smem variant
+FT_EXPECT = {
+    "bm_k1": ({"K1": 68}, {"reg16": 1, "smem": 67}, {}),
+    "bm_fused": ({"K1": 1, "K2": 1}, {"reg16": 1}, {"K2": {"smem": 1}}),
+}
+OPTION_WARM_STEPS = 2
+OPTIONS = {  # (g) the other options on bm_k1: make_problem's keyword arguments
+    "lin_tangents_f32": dict(lin_tangents="f32"),
+    "lin_tangents_bf16": dict(lin_tangents="bf16"),
+    "sensitivity_rk2": dict(sensitivity="rk2"),
+    "arm_locked": dict(quad_only=True),
+    "shared_stage_false": dict(shared_stage=False),
+}
+
+
+def phase_force_tracking(dev, refs):
+    """(g) force tracking at full width: bm_k1 and bm_fused driven as (b)
+    drives bm_k1, the off-grasp wrench exactly 0, per-stage host ms and the
+    card's idle share, (c)'s cross-precision check for each; K1's smem
+    variant at the gain shape and K2's smem variant on (g)'s warm iterate;
+    the other options; one SqpSolver.solve cold and warm. Returns the two
+    runs and the two kernel rows."""
+    import torch
+
+    runs, rows, seconds, t0 = {}, {}, {}, time.time()
+    for backend in ("bm_k1", "bm_fused"):
+        problem = make_problem(dev, torch.float32, BATCH, "analytic_bf16", backend,
+                               force_tracking=True)
+        run = runs[backend] = drive(dev, backend, "g", problem=problem,
+                                    expect=FT_EXPECT[backend])
+        stage, U = run["stage"], run["U"]
+        N = U.shape[1]
+        off = stage.grasp_flags[:N] < 0.5
+        wrench_off = U[:, off, 30:36].abs().max().item()
+        if not (off.any() and (~off).any() and wrench_off == 0.0):
+            raise RuntimeError(f"force tracking {backend}: off-grasp wrench max {wrench_off} "
+                               "(must be exactly 0)")
+        seconds[f"drive_{backend}"], t0 = time.time() - t0, time.time()
+        stage_ms, device, run["lq_data"] = stage_split(
+            run, "fused" if backend == "bm_fused" else "k1")
+        result = run_result(run, backend, device["step"])
+        result.update(problem="force_tracking", nu=36, stage_ms=stage_ms,
+                      device_profile=device, launches_by_variant={
+                          "K1": run["k1_variants"], **{k: v for k, v in
+                                                       run["sweep_variants"].items() if any(
+                                                           v.values())}},
+                      off_grasp_wrench_max=wrench_off,
+                      on_grasp_wrench_mean=U[:, ~off, 30:36].mean(dim=(0, 1)).tolist())
+        log("[g] " + json.dumps(result))
+        phase_cross_precision(dev, refs, backend, "g", force_tracking=True)
+        seconds[f"split_cross_{backend}"], t0 = time.time() - t0, time.time()
+    rows["K1_smem"] = ft_gain_kernel(runs["bm_k1"])
+    rows["K2_smem"] = ft_sweep_kernel(runs["bm_fused"])
+    seconds["kernels"], t0 = time.time() - t0, time.time()
+    phase_options(dev)
+    seconds["options"], t0 = time.time() - t0, time.time()
+    phase_single_solve(dev)
+    seconds["single_solve"] = time.time() - t0
+    log("[g] seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    return runs, rows
+
+
+def ft_gain_kernel(run):
+    """K1's smem variant at the force-tracking gain shape (384 x 36 x 31:
+    Quu 36 x 36, the right-hand sides [Qux, Qu], nx + 1 columns),
+    on node 0's gain system of the sweep at (g)'s bm_k1 warm iterate: held
+    against the f64 plain solve, timed in chained calls and in a CUDA graph
+    beside its bound, its plain version and torch.linalg."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
+    from qm_door_torch.solver import riccati
+
+    plq, lq_data = run["lq_data"]["plq"], run["lq_data"]
+    calls, solve = [], riccati.spd_solve
+    riccati.spd_solve = lambda A, Y, *a, **k: calls.append((A, Y)) or solve(A, Y, *a, **k)
+    try:
+        riccati.lqr_solve_batched(plq, run["x_batch"] - run["X"][:, 0])
+    finally:
+        riccati.spd_solve = solve
+    A, Y = calls[-1]
+    batch, n, m = Y.shape
+    if (batch, n, m) != (BATCH, 36, 31) or k1_variant(n, m) != "smem":
+        raise RuntimeError(f"K1 at the nu = 36 gain: shape {(batch, n, m)}, variant "
+                           f"{k1_variant(n, m)}")
+    ref = spd_solve_plain(A.double(), Y.double())
+    nbytes = 4 * batch * (n * (n + 1) // 2 + 2 * n * m)
+    flops = batch * (n ** 3 / 3.0 + 2.0 * n * n * m)
+    row, _ = kernel_row("K1", "spd_solve smem, nu = 36 gain", lambda A, Y: (spd_solve(A, Y),),
+                        lambda A, Y: (spd_solve_plain(A, Y),), [A, Y], [ref], K1_REL_TOL,
+                        nbytes, flops, reps=50, tag="g", variant="smem",
+                        calls_per_step=len(calls))
+    row["ms_graph"] = graph_ms(lambda: spd_solve(A, Y))
+    row["library_ms"] = cuda_ms(lambda: torch.cholesky_solve(Y, torch.linalg.cholesky(A)),
+                                reps=20)
+    row["launches"] = run["k1_variants"]["smem"]
+    log("[g] K1 smem at the nu = 36 gain: " + json.dumps(
+        {k: row[k] for k in ("ms", "ms_graph", "plain_ms", "library_ms", "bound_ms", "launches")}))
+    return row
+
+
+def ft_sweep_kernel(run):
+    """K2's smem variant at 384 x 67, nx 30, nu 36 on (g)'s bm_fused warm
+    iterate: held against its f64 plain version, timed beside its bound."""
+    from qm_door_torch.ops import riccati_fused as rf
+
+    plq = run["lq_data"]["plq"]
+    args = [t.contiguous() for t in (plq.A, plq.B, plq.d, plq.lx, plq.lu, plq.lxx, plq.luu,
+                                     plq.lux, plq.lxx_f, plq.lx_f)]
+    B, N, nx, nu = args[1].shape
+    if rf.sweep_variant(nx, nu) != "smem" or nu != 36:
+        raise RuntimeError(f"K2 at nu = {nu}: variant {rf.sweep_variant(nx, nu)}")
+    nbytes, flops = sweep_cost(B, N, nx, nu)
+    ref = rf.riccati_backward_fused_plain(*[t.double() for t in args])
+    row, _ = kernel_row("K2", "riccati_backward_fused smem, nu = 36", rf.riccati_backward_fused,
+                        rf.riccati_backward_fused_plain, args, ref, SWEEP_REL_TOL, nbytes, flops,
+                        tag="g", variant="smem", shape=[B, N, nx, nu])
+    row["library_ms"] = None
+    row["launches"] = run["sweep_variants"]["K2"]["smem"]
+    return row
+
+
+def phase_options(dev):
+    """(g) the other options on the card, each on bm_k1 at B = 384: one cold
+    and OPTION_WARM_STEPS warm steps, the launches a step checked (K1 68:
+    67 reg32 + 1 reg16), the step ms and mean violation printed."""
+    import torch
+
+    out = {}
+    for name, kw in OPTIONS.items():
+        kw = dict(dict(lin_tangents="analytic_bf16"), **kw)
+        problem = make_problem(dev, torch.float32, BATCH, backend="bm_k1", **kw)
+        run = drive(dev, "bm_k1", "g", problem=problem, warm_steps=OPTION_WARM_STEPS,
+                    viol_max=None)
+        out[name] = {"step_ms": 1e3 * run["elapsed"] / OPTION_WARM_STEPS,
+                     "cold_step_s": run["cold_s"], "mean_violation": run["viol"],
+                     "steps": run["steps"], "K1_launches": run["launches"]["K1"]}
+        del run, problem
+        torch.cuda.empty_cache()
+    log("[g] options: " + json.dumps(out))
+
+
+def phase_single_solve(dev):
+    """(g) SqpSolver.solve of one scenario (nu = 30, the config's
+    sqp_iterations), then one solve warm-started from it on the grid one
+    node later: host ms and K1 launches of each (68 an iteration: the
+    projection's node solves, reg16, and 67 gain solves of one system, reg32)."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+
+    mpc, stage, x_batch, _, _ = make_problem(dev, torch.float32, 1, "analytic_bf16")
+    solver = mpc.solver
+    iters = solver.settings.sqp_iterations
+    out, sol = {}, None
+    for name in ("cold", "warm"):
+        if name == "warm":  # the next MPC tick: one node later, from the planned state
+            x0 = sol.X[1].clone()
+            stage = make_problem(dev, torch.float32, 1, "analytic_bf16",
+                                 t0=solver.settings.dt)[1]
+        else:
+            x0 = x_batch[0]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        new = solver.solve(stage, x0, warm=None if sol is None else (sol.times, sol.X, sol.U))
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        launches = read_launches()
+        by_variant = dict(spd_solve.launches_by_variant)
+        want = {kid: 68 * iters if kid == "K1" else 0 for kid in launches}
+        want_v = {"reg16": iters, "reg32": 67 * iters, "smem": 0}
+        ok = bool(torch.isfinite(new.X).all() and torch.isfinite(new.U).all())
+        if launches != want or by_variant != want_v or not ok or not float(new.step_size) > 0:
+            raise RuntimeError(f"SqpSolver.solve ({name}): launches {launches}, K1 by variant "
+                               f"{by_variant}, finite {ok}, step {float(new.step_size)}")
+        out[name] = {"host_ms": ms, "K1_launches": launches["K1"], "K1_by_variant": by_variant,
+                     "cost": float(new.cost), "violation": float(new.constraint_violation),
+                     "step_size": float(new.step_size)}
+        sol = new
+    log("[g] SqpSolver.solve: " + json.dumps(out))
 
 
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
@@ -1417,13 +1693,24 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     card = card_line()
 
-    build_all()
-    rows = phase_kernels(dev)
-    main_path = phase_main_path(dev)
-    phase_cross_precision(dev)
-    new_rows = phase_new_kernels(dev, main_path)
-    path_launches, sweep_by_variant, backend_runs = phase_backends(dev, main_path)
-    phase_pairs({"bm_k1": main_path["run"], **backend_runs})
+    seconds, t_phase = {}, time.time()
+
+    def phase(name, fn, *args):  # runs one phase and keeps its seconds
+        nonlocal t_phase
+        out = fn(*args)
+        seconds[name], t_phase = time.time() - t_phase, time.time()
+        return out
+
+    phase("build", build_all)
+    rows = phase("a", phase_kernels, dev)
+    main_path = phase("b", phase_main_path, dev)
+    refs = {}  # the cross-precision checks' CPU f64 runs, by problem
+    phase("c", phase_cross_precision, dev, refs)
+    new_rows = phase("d", phase_new_kernels, dev, main_path)
+    path_launches, sweep_by_variant, backend_runs = phase("e", phase_backends, dev, main_path,
+                                                          refs)
+    phase("f", phase_pairs, {"bm_k1": main_path["run"], **backend_runs})
+    _, ft_rows = phase("g", phase_force_tracking, dev, refs)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -1464,7 +1751,20 @@ def main():
             kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",
                 "phase_clock_build_spills")}, launches_by_variant=sweep_by_variant[kid])
-    log(f"total {time.time() - t_start:.1f} s")
+    # (g)'s path, force tracking: K1's smem variant on bm_k1's gain solves and
+    # K2's smem variant on bm_fused, with the launches of (g)'s driven runs
+    for r, (name, source, replaces), path in (
+            (ft_rows["K1_smem"], ("spd_solve", "qm_door_torch/csrc/spd_solve.cu",
+                                  "qm_door_tpu/ops/pallas_chol.py:103"), "force_tracking bm_k1"),
+            (ft_rows["K2_smem"], KERNELS["K2"], "force_tracking bm_fused")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "variant": r["variant"], "path": path, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "rel_err": r["rel_err"], "bytes": r["bytes"], "flops": r["flops"]})
+    log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,13 @@ from .solver.transcription import LqProblem, ProjectedLq
 
 
 def _tensor_fields(cls, d, dtype, device):
+    """The fields of ``cls`` found in ``d`` as tensors (plain values and None
+    pass through); a field with a default may be absent from ``d``."""
     dev = resolve_device(device)
     out = {}
     for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
         v = d[f.name]
         if v is None or isinstance(v, (bool, int, float, str, tuple)):
             out[f.name] = v
@@ -38,21 +42,17 @@ def robot_model_from_numpy(d, device=None, dtype=torch.float64) -> RobotModel:
 
 
 def ocp_config_from_numpy(d, device=None, dtype=torch.float64) -> OcpConfig:
-    """OcpConfig from the JAX OcpConfig's fields. The options this package
-    does not implement yet must be off."""
-    if d.get("arm_locked", False):
-        raise NotImplementedError("arm_locked (quad-only) is not ported yet")
+    """OcpConfig from the JAX OcpConfig's fields (the 30- or 36-input
+    problem, ``arm_locked`` or not). The self-collision cost is not ported
+    and must be off."""
     if d.get("self_collision_mu", 0.0) > 0.0:
         raise NotImplementedError("the self-collision cost is not ported yet")
-    if d.get("wrench_lower") is not None:
-        raise NotImplementedError("the force-tracking OCP is not ported yet")
     return OcpConfig(**_tensor_fields(OcpConfig, d, dtype, device))
 
 
 def stage_data_from_numpy(d, device=None, dtype=torch.float64) -> StageData:
-    """StageData from the JAX StageData's fields (30-input problem)."""
-    if d.get("grasp_flags") is not None:
-        raise NotImplementedError("the force-tracking stage data is not ported yet")
+    """StageData from the JAX StageData's fields (with ``grasp_flags`` on the
+    force-tracking problem; a leading scenario axis passes through)."""
     return StageData(**_tensor_fields(StageData, d, dtype, device))
 
 
@@ -66,13 +66,9 @@ def lq_from_numpy(d, device=None, dtype=torch.float64) -> LqProblem:
 
 
 def projected_lq_from_numpy(d, device=None, dtype=torch.float64) -> ProjectedLq:
-    """ProjectedLq from the JAX ProjectedLq's fields (batch-major, structured
-    recovery). The dense recovery maps ``Pu``/``Px`` and the force-tracking
-    ``grasp_gate`` have no place here and are refused; ``P``, ``Px_v`` and
-    ``force_mask`` may be None for data that only the backward sweep reads."""
-    for key in ("Pu", "Px", "grasp_gate"):
-        if d.get(key) is not None:
-            raise ValueError(f"projected_lq_from_numpy: {key} is not held by this "
-                             "package's ProjectedLq (structured recovery, nu = 30)")
+    """ProjectedLq from the JAX ProjectedLq's fields: the structured recovery
+    of the batch-major path (``P``, ``Px_v``, ``force_mask``, and
+    ``grasp_gate`` at nu = 36) or the dense ``Pu`` / ``Px`` of the
+    per-scenario path; the fields a form does not use may be None."""
     fields = {f.name: d.get(f.name) for f in dataclasses.fields(ProjectedLq)}
     return ProjectedLq(**_tensor_fields(ProjectedLq, fields, dtype, device))

@@ -1,8 +1,9 @@
 """Centroidal model: state/input layout, pinocchio-chart mapping, flow map
-(port of qm_door_tpu/models/centroidal.py for the 30-input problem).
+(port of qm_door_tpu/models/centroidal.py).
 
 State x (30): [ h_com/m : vcom(3), L/m(3) ;  base pose: pos(3), zyx(3) ; q_j(18) ]
 Input u (30): [ contact forces LF,RF,LH,RH (12) ; joint velocities (18) ]
+Force-tracking input u (36): the 30 above, then the EE wrench (6).
 
 Functions take (x, u) with any leading batch dims.
 """
@@ -12,7 +13,7 @@ import torch
 
 from . import spatial
 from .dynamics import centroidal_momentum_matrix, com_position
-from .kinematics import contact_positions
+from .kinematics import contact_positions, ee_pose
 from .model import GRAVITY, RobotModel
 
 
@@ -34,6 +35,12 @@ def contact_forces(u):
 
 def joint_velocities(u):
     return u[..., 12:30]
+
+
+def ee_wrench(u):
+    """Force-tracking input extension: EE wrench [force(3); torque(3)],
+    appended to the 30 inputs so every 30-dim accessor stays valid."""
+    return u[..., 30:36]
 
 
 def pinocchio_q(x):
@@ -75,13 +82,28 @@ def flow_map(model: RobotModel, x, u):
     return torch.cat([hdot_lin, hdot_ang, v_b, joint_velocities(u)], dim=-1)
 
 
+def flow_map_ft(model: RobotModel, x, u):
+    """Force-tracking flow map: the EE wrench [F_ee; tau_ee] (u (36)) acts at
+    the arm EE frame as a 5th contact, adding F_ee/m to the linear momentum
+    rate and (cross(p_ee - com, F_ee) + tau_ee)/m to the angular rate."""
+    q = pinocchio_q(x)
+    m = torch.sum(model.body_mass)
+    F = contact_forces(u)
+    W = ee_wrench(u)
+    p_c = contact_positions(model, q)
+    com = com_position(model, q)
+    _, p_ee = ee_pose(model, q)
+    lin = (torch.sum(F, dim=-2) + W[..., 0:3]) / m
+    hdot_lin = torch.cat([lin[..., :2], lin[..., 2:] - GRAVITY], dim=-1)
+    hdot_ang = (torch.sum(spatial.cross(p_c - com[..., None, :], F), dim=-2)
+                + spatial.cross(p_ee - com, W[..., 0:3]) + W[..., 3:6]) / m
+    v_b = base_velocity(model, x, u)
+    return torch.cat([hdot_lin, hdot_ang, v_b, joint_velocities(u)], dim=-1)
+
+
 def flow_map_any(model: RobotModel, x, u):
-    """Dispatch on the input width: 30 -> nominal. The 36-input
-    force-tracking flow map is not ported yet."""
-    if u.shape[-1] != 30:
-        raise NotImplementedError(
-            f"input width {u.shape[-1]}: only the 30-input problem is ported")
-    return flow_map(model, x, u)
+    """Dispatch on the input width: 30 -> nominal, 36 -> with the EE wrench."""
+    return flow_map_ft(model, x, u) if u.shape[-1] == 36 else flow_map(model, x, u)
 
 
 def weight_compensating_input(model: RobotModel, contact_flags, dtype=None):

@@ -1,5 +1,5 @@
 """OCP definition: per-node stage data, cost evaluation and quadratization
-(port of qm_door_tpu/ocp/problem.py for the 30-input problem).
+(port of qm_door_tpu/ocp/problem.py; the self-collision cost is not ported).
 
 The quadratization is closed-form: constant Q/R, Gauss-Newton for the EE
 penalty (OCS2's Linear-order soft constraints), analytic barrier second
@@ -8,7 +8,8 @@ derivatives for the friction cone and the arm soft boxes.
 Per-node functions take the node's stage row (:class:`StageRow`) instead
 of the node index: the rows are gathered before ``torch.func.vmap`` and
 vmapped alongside (x, u), so nothing indexes stage arrays with a batched
-index.
+index. Stage arrays carry the node axis second to last (last for
+``times`` and ``grasp_flags``), after an optional scenario axis.
 """
 from __future__ import annotations
 
@@ -50,13 +51,19 @@ class OcpConfig:
     arm_pos_upper: torch.Tensor
     arm_vel_lower: torch.Tensor
     arm_vel_upper: torch.Tensor
+    # force-tracking only (ocp/force.py): soft box on the EE wrench input
+    wrench_lower: Optional[torch.Tensor] = None  # (6,)
+    wrench_upper: Optional[torch.Tensor] = None
+    wrench_mu: float = 0.1
+    wrench_delta: float = 1e-3
+    # quad-only variant: arm velocity inputs pinned to zero in the
+    # projection (a mask on the 30/30 problem, not a shape change)
+    arm_locked: bool = False
 
 
 def make_ocp_config(model: RobotModel, cfg, dtype=None) -> OcpConfig:
     """OcpConfig from a QmConfig on the model's device, including the R
     leg-velocity mapping (QMInterface::initializeInputCostWeight)."""
-    if cfg.model.arm_locked:
-        raise NotImplementedError("arm_locked (quad-only) is not ported yet")
     if cfg.self_collision.mu > 0.0:
         raise NotImplementedError("the self-collision cost is not ported yet")
     dtype = model.dtype if dtype is None else dtype
@@ -97,12 +104,13 @@ def make_ocp_config(model: RobotModel, cfg, dtype=None) -> OcpConfig:
         arm_pos_upper=model.pos_upper[12:18].to(dtype),
         arm_vel_lower=t(jl.arm_velocity_lower),
         arm_vel_upper=t(jl.arm_velocity_upper),
+        arm_locked=cfg.model.arm_locked,
     )
 
 
 class StageRow(NamedTuple):
     """The stage data one node's cost and constraints read (leading dims
-    are the nodes selected)."""
+    are the scenarios and nodes selected)."""
 
     contact_flags: torch.Tensor  # (..., 4)
     x_nom: torch.Tensor          # (..., 30)
@@ -114,22 +122,31 @@ class StageRow(NamedTuple):
 
 @dataclass(frozen=True)
 class StageData:
-    """Per-solve reference arrays over the N+1 node grid (all fixed-shape)."""
+    """Per-solve reference arrays over the N+1 node grid (all fixed-shape),
+    shared by every scenario or with a leading scenario axis (B, N+1, ...).
+
+    ``grasp_flags`` exists only on the force-tracking problem (u_nom widens
+    to 36 there, see ocp/force.py): it gates the EE-wrench input as
+    contact_flags gate the foot forces; the wrench reference lives in
+    u_nom[..., 30:36].
+    """
 
     times: torch.Tensor          # (N+1,)
     contact_flags: torch.Tensor  # (N+1, 4)
     x_nom: torch.Tensor          # (N+1, 30) desired state (tracking cost)
-    u_nom: torch.Tensor          # (N+1, 30) weight-compensating input
+    u_nom: torch.Tensor          # (N+1, nu) weight-compensating input
     ee_pos_ref: torch.Tensor     # (N+1, 3)
     ee_quat_ref: torch.Tensor    # (N+1, 4) xyzw
     z_vel_ref: torch.Tensor      # (N+1, 4) swing normal-velocity reference
     z_pos_ref: torch.Tensor      # (N+1, 4)
+    grasp_flags: Optional[torch.Tensor] = None  # (N+1,) 1 = EE wrench active
 
     def rows(self, index) -> StageRow:
-        """The stage rows at ``index`` (an int, a slice or an index tensor)."""
-        return StageRow(
-            self.contact_flags[index], self.x_nom[index], self.u_nom[index],
-            self.ee_pos_ref[index], self.ee_quat_ref[index], self.z_vel_ref[index])
+        """The stage rows at node ``index`` (an int, a slice or an index
+        tensor), on the node axis whether or not a scenario axis leads."""
+        return StageRow(*(a[..., index, :] for a in (
+            self.contact_flags, self.x_nom, self.u_nom, self.ee_pos_ref, self.ee_quat_ref,
+            self.z_vel_ref)))
 
 
 def build_stage_data(
@@ -202,6 +219,10 @@ def _tracking_cost(ocp: OcpConfig, dx, du):
             + 0.5 * torch.sum(du * spatial.fmv(ocp.R, du), dim=-1))
 
 
+def _has_wrench_box(ocp: OcpConfig, u) -> bool:
+    return u.shape[-1] == 36 and ocp.wrench_lower is not None
+
+
 def _soft_limits_cost(ocp: OcpConfig, x, u):
     pos = penalties.box_barrier(
         x[..., 24:30], ocp.arm_pos_lower, ocp.arm_pos_upper,
@@ -209,7 +230,12 @@ def _soft_limits_cost(ocp: OcpConfig, x, u):
     vel = penalties.box_barrier(
         u[..., 24:30], ocp.arm_vel_lower, ocp.arm_vel_upper,
         ocp.limit_vel_mu, ocp.limit_vel_delta)
-    return torch.sum(pos, dim=-1) + torch.sum(vel, dim=-1)
+    c = torch.sum(pos, dim=-1) + torch.sum(vel, dim=-1)
+    if _has_wrench_box(ocp, u):
+        c = c + torch.sum(penalties.box_barrier(
+            u[..., 30:36], ocp.wrench_lower, ocp.wrench_upper, ocp.wrench_mu,
+            ocp.wrench_delta), dim=-1)
+    return c
 
 
 def _cone_cost(ocp: OcpConfig, u, contact_flags):
@@ -242,8 +268,8 @@ def stage_cost(model: RobotModel, ocp: OcpConfig, row: StageRow, x, u):
 
 def terminal_cost(model: RobotModel, ocp: OcpConfig, stage: StageData, x):
     """Final-node cost: EE pose penalty only (no terminal Q)."""
-    return ee_stage_cost(
-        model, ocp, x, stage.ee_pos_ref[-1], stage.ee_quat_ref[-1], final=True)
+    return ee_stage_cost(model, ocp, x, stage.ee_pos_ref[..., -1, :],
+                         stage.ee_quat_ref[..., -1, :], final=True)
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +308,7 @@ def quadratize_stage(model: RobotModel, ocp: OcpConfig, row: StageRow, x, u,
     Gauss-Newton for the EE penalty. ``ee_lin``: optional precomputed
     (e, Je) from the linearization.
     """
-    nu = u.shape[-1]
-    if nu != 30:
-        raise NotImplementedError("only the 30-input problem is ported")
+    nu = u.shape[-1]  # 30 nominal, 36 force-tracking (EE wrench appended)
     dx = x - row.x_nom
     du = u - row.u_nom
 
@@ -332,20 +356,35 @@ def quadratize_stage(model: RobotModel, ocp: OcpConfig, row: StageRow, x, u,
     lx = lx + tnf.pad(penalties.box_barrier_d(
         arm_q, ocp.arm_pos_lower, ocp.arm_pos_upper, ocp.limit_pos_mu, ocp.limit_pos_delta), (24, 0))
     lu = lu + tnf.pad(penalties.box_barrier_d(
-        arm_v, ocp.arm_vel_lower, ocp.arm_vel_upper, ocp.limit_vel_mu, ocp.limit_vel_delta), (24, 0))
+        arm_v, ocp.arm_vel_lower, ocp.arm_vel_upper, ocp.limit_vel_mu, ocp.limit_vel_delta),
+        (24, nu - 30))
     dxx = penalties.box_barrier_dd(
         arm_q, ocp.arm_pos_lower, ocp.arm_pos_upper, ocp.limit_pos_mu, ocp.limit_pos_delta)
     duu = penalties.box_barrier_dd(
         arm_v, ocp.arm_vel_lower, ocp.arm_vel_upper, ocp.limit_vel_mu, ocp.limit_vel_delta)
     lxx = lxx + torch.diag_embed(tnf.pad(dxx, (24, 0)))
-    luu = luu + torch.diag_embed(tnf.pad(duu, (24, 0)))
+    luu = luu + torch.diag_embed(tnf.pad(duu, (24, nu - 30)))
+
+    # EE wrench soft box (force tracking only; its value is in
+    # _soft_limits_cost already)
+    if _has_wrench_box(ocp, u):
+        w_ = u[30:36]
+        args = (ocp.wrench_lower, ocp.wrench_upper, ocp.wrench_mu, ocp.wrench_delta)
+        lu = lu + tnf.pad(penalties.box_barrier_d(w_, *args), (30, 0))
+        luu = luu + torch.diag_embed(tnf.pad(penalties.box_barrier_dd(w_, *args), (30, 0)))
     return l, lx, lu, lxx, luu, lux
 
 
 def quadratize_terminal(model: RobotModel, ocp: OcpConfig, stage: StageData, x):
     """(l, lx, lxx) of the terminal EE cost (Gauss-Newton) at one state."""
+    return quadratize_terminal_ref(model, ocp, stage.ee_pos_ref[-1], stage.ee_quat_ref[-1], x)
+
+
+def quadratize_terminal_ref(model: RobotModel, ocp: OcpConfig, ee_pos_ref, ee_quat_ref, x):
+    """:func:`quadratize_terminal` from the final node's EE references (the
+    form ``torch.func.vmap`` maps over scenarios with their own stage data)."""
     def err_fn(x_):
-        return _ee_error(model, ocp, x_, stage.ee_pos_ref[-1], stage.ee_quat_ref[-1])
+        return _ee_error(model, ocp, x_, ee_pos_ref, ee_quat_ref)
 
     e = err_fn(x)
     Je = jacfwd(err_fn)(x)

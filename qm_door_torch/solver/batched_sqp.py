@@ -1,7 +1,9 @@
 """Natively-batched SQP iteration: the serving path (port of
 qm_door_tpu/solver/batched_sqp.py).
 
-One iteration for B scenarios in lock-step:
+One iteration for B scenarios in lock-step, on the 30-input problem or
+the force-tracking one (nu = 36), with ``arm_locked`` or not, the stage
+data shared or per scenario (``stage_batched``):
 
 - linearize: ``transcription.linearize_ocp``, vmapped over (B, N);
 - the LQ stage (project + Riccati), by ``backend``:
@@ -16,7 +18,8 @@ One iteration for B scenarios in lock-step:
                 backward sweep in one kernel
   ``lq_fused``  ``ops.lq.solve_lq_batched``: K3a, K3b       ``pallas``
                 (projection), K3c (backward), K3d
-                (forward); nu = 30 only
+                (forward); nu = 30 only,
+                not ``arm_locked``
   ============  ==========================================  ===================
 - linesearch: the filter linesearch over the alpha grid with an early exit
   — one batched trajectory evaluation per candidate, stopping as soon as
@@ -36,70 +39,61 @@ from ..ocp import constraints as cons
 from ..ocp.problem import OcpConfig, StageData
 from ..ops.lq import solve_lq_batched
 from .riccati import lqr_solve_batched
-from .sqp import evaluate_trajectory
-from .transcription import NU, linearize_ocp, project_ocp_batched
-
-
-def _accept(cost0, viol0, costs, viols, alpha, settings):
-    """OCS2 FilterLinesearch acceptance rule."""
-    decrease_viol = viols < (1.0 - 1e-3) * viol0
-    decrease_cost = costs < cost0 - settings.armijo_factor * alpha * torch.abs(cost0)
-    ok_infeasible = decrease_viol
-    ok_feasible = decrease_cost & (viols < torch.clamp(2 * viol0, min=settings.g_max))
-    ok_mixed = decrease_cost | decrease_viol
-    ok = torch.where(
-        viol0 > settings.g_max, ok_infeasible,
-        torch.where(viol0 < settings.g_min, ok_feasible, ok_mixed))
-    return ok & torch.isfinite(costs) & torch.isfinite(viols)
-
+from .sqp import _alpha_grid, baseline_violation, evaluate_trajectory
+from .sqp import accept as _accept
+from .transcription import NU, NU_FT, linearize_ocp, project_ocp_batched
 
 BACKENDS = ("bm_k1", "bm_fused", "lq_fused")
 
 
 def batched_sqp_iteration(model: RobotModel, ocp: OcpConfig, stage: StageData,
-                          dt, settings, x_init, X, U, backend: str = "bm_k1"):
-    """One SQP iteration for B scenarios sharing ``stage``.
+                          dt, settings, x_init, X, U, stage_batched: bool = False,
+                          backend: str = "bm_k1"):
+    """One SQP iteration for B scenarios.
 
-    x_init (B, 30); X (B, N+1, 30); U (B, N, 30). ``backend`` picks the LQ
-    stage (module docstring). Returns (X, U, stats) with stats = (cost,
-    violation, step_size), each (B,). The inputs are not modified.
+    x_init (B, 30); X (B, N+1, 30); U (B, N, nu). ``stage`` is shared (no
+    leading axis) or per scenario (leading B, ``stage_batched``).
+    ``backend`` picks the LQ stage (module docstring). Returns (X, U, stats)
+    with stats = (cost, violation, step_size), each (B,). The inputs are not
+    modified.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
-    if backend == "lq_fused" and U.shape[-1] != NU:
+    nu = U.shape[-1]
+    if nu not in (NU, NU_FT):
+        raise ValueError(f"U has {nu} inputs, expected {NU} or {NU_FT}")
+    if backend == "lq_fused" and (nu != NU or ocp.arm_locked):
         raise ValueError(f"backend 'lq_fused' takes nu = 30 only (its kernels hard-code "
-                         f"30/30/18/12), not nu = {U.shape[-1]}")
-    if U.shape[-1] != NU:
-        raise NotImplementedError("only the 30-input problem is ported")
+                         f"30/30/18/12) and no arm_locked, not nu = {nu}, "
+                         f"arm_locked={ocp.arm_locked}")
     B, N = U.shape[0], U.shape[1]
-    lq = linearize_ocp(model, ocp, stage, dt, X, U,
-                       sensitivity=settings.sensitivity, tangents=settings.lin_tangents)
-    flags = stage.contact_flags[:N].expand(B, N, 4)
+    lq = linearize_ocp(model, ocp, stage, dt, X, U, sensitivity=settings.sensitivity,
+                       tangents=settings.lin_tangents, stage_batched=stage_batched)
+    flags = stage.contact_flags[..., :N, :].expand(B, N, 4)
     dx0 = x_init - X[:, 0]
     if backend == "lq_fused":
         dX, dU = solve_lq_batched(lq, cons.velocity_row_mask(flags),
                                   torch.repeat_interleave(flags, 3, dim=-1), U[:, :, :12], dx0,
                                   shift=settings.hessian_shift)
     else:
-        plq = project_ocp_batched(lq, flags, U, shift=settings.hessian_shift)
+        grasp = stage.grasp_flags[..., :N].expand(B, N) if nu == NU_FT else None
+        plq = project_ocp_batched(lq, flags, U, shift=settings.hessian_shift, grasp=grasp,
+                                  arm_locked=ocp.arm_locked)
         dX, dU, _, _ = lqr_solve_batched(
             plq, dx0, backend="fused" if backend == "bm_fused" else "k1")
 
     # baseline merit from the linearization byproducts
     cost0 = lq.cost                                                  # (B,)
-    swing = 1.0 - torch.repeat_interleave(flags, 3, dim=-1)
-    zero_force_sse = torch.sum((swing * U[:, :, 0:12]) ** 2, dim=(1, 2))
-    viol0 = (torch.sum(lq.d * lq.d, dim=(1, 2))
-             + torch.sum(lq.g0 * lq.g0, dim=(1, 2)) + zero_force_sse)
+    viol0 = baseline_violation(ocp, stage, lq, U)
 
     # --- early-exit filter linesearch over the alpha grid ------------------
-    n_alpha = settings.linesearch_steps
-    alphas = settings.max_step * (
-        settings.step_reduction ** torch.arange(n_alpha, dtype=X.dtype, device=X.device))
+    # one batched evaluation a candidate, stopping once every scenario has
+    # accepted a step (one host sync a candidate after the first)
+    alphas = _alpha_grid(settings, X)
     accepted = torch.zeros(B, dtype=torch.bool, device=X.device)
     alpha = torch.zeros(B, dtype=X.dtype, device=X.device)
     cost_new, viol_new = cost0, viol0
-    for i in range(n_alpha):
+    for i in range(settings.linesearch_steps):
         if i > 0 and bool(torch.all(accepted)):
             break
         a = alphas[i]

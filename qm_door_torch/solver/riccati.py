@@ -1,16 +1,20 @@
-"""Batch-major Riccati LQ solve over the horizon (port of the batched
-sweeps of qm_door_tpu/solver/riccati.py).
+"""Riccati LQ solve over the horizon (port of qm_door_tpu/solver/riccati.py
+without the associative-scan backend).
 
 The LQ problem is defect-aware multiple shooting:
   min  sum_k 1/2 dx'lxx dx + 1/2 du'luu du + du'lux dx + lx'dx + lu'du
        + terminal 1/2 dx'lxx_f dx + lx_f'dx
   s.t. dx_{k+1} = A_k dx_k + B_k du_k + d_k,   dx_0 given.
 
-Backend "k1": the sweeps are Python loops over the N nodes, each step
-batched over the B scenarios; the gain solve of every backward step is one
-call to K1 (``ops/spd_solve.py``). Backend "fused": the whole backward
-sweep is one launch of K2 (``ops/riccati_fused.py``), then the same forward
-loop.
+Batch-major sweeps (``*_batched``), backend "k1": Python loops over the N
+nodes, each step batched over the B scenarios; the gain solve of every
+backward step is one call to K1 (``ops/spd_solve.py``). Backend "fused":
+the whole backward sweep is one launch of K2 (``ops/riccati_fused.py``),
+then the same forward loop.
+
+Per-scenario sweeps (``riccati_backward``, ``riccati_forward``,
+``lqr_solve``): the same loops over (N, ...) data, each gain solve a K1
+call with a batch of one system.
 """
 from __future__ import annotations
 
@@ -54,17 +58,28 @@ def riccati_backward_batched(lq: ProjectedLq):
     return torch.stack(Ks, dim=1), torch.stack(kffs, dim=1)
 
 
+def _recover(lq: ProjectedLq, k, u_red, dx):
+    """du = p + Pu u_red + Px dx at node k of batch-major data: dense when
+    the projection carried Pu / Px, else structured — the force (and
+    wrench) dims are elementwise gates, only the 18 joint-velocity dims
+    need products."""
+    if lq.P is None:
+        return lq.p[:, k] + fmv(lq.Pu[:, k], u_red) + fmv(lq.Px[:, k], dx)
+    parts = [lq.force_mask[:, k] * u_red[..., 0:12],
+             fmv(lq.P[:, k], u_red[..., 12:30]) + fmv(lq.Px_v[:, k], dx)]
+    if lq.grasp_gate is not None:
+        parts.append(lq.grasp_gate[:, k] * u_red[..., 30:36])
+    return lq.p[:, k] + torch.cat(parts, dim=-1)
+
+
 def riccati_forward_batched(lq: ProjectedLq, K, kff, dx0):
-    """Forward rollout over (B, N, ...). Returns (dX (B,N+1,nx), dU (B,N,30)),
-    recovering du = p + blkdiag(diag(fm), P) u_red + [0; Px_v] dx."""
+    """Forward rollout over (B, N, ...). Returns (dX (B,N+1,nx), dU (B,N,nu))."""
     N = lq.A.shape[1]
     dx = dx0
     dXs, dUs = [], []
     for k in range(N):
         u_red = kff[:, k] + fmv(K[:, k], dx)
-        du_F = lq.force_mask[:, k] * u_red[..., 0:12]
-        du_v = fmv(lq.P[:, k], u_red[..., 12:30]) + fmv(lq.Px_v[:, k], dx)
-        dUs.append(lq.p[:, k] + torch.cat([du_F, du_v], dim=-1))
+        dUs.append(_recover(lq, k, u_red, dx))
         dXs.append(dx)
         dx = fmv(lq.A[:, k], dx) + fmv(lq.B[:, k], u_red) + lq.d[:, k]
     dXs.append(dx)
@@ -89,4 +104,56 @@ def lqr_solve_batched(lq: ProjectedLq, dx0, backend: str = "k1"):
     else:
         raise ValueError(f"backend={backend!r}: expected one of {RICCATI_BACKENDS}")
     dX, dU = riccati_forward_batched(lq, K, kff, dx0)
+    return dX, dU, K, kff
+
+
+# ---------------------------------------------------------------------------
+# per-scenario sweeps
+# ---------------------------------------------------------------------------
+
+def riccati_backward(lq: ProjectedLq):
+    """Backward sweep over one scenario's (N, ...) data. Returns
+    (K (N,nu,nx), kff (N,nu), S0, s0)."""
+    nx = lq.A.shape[-1]
+    N = lq.A.shape[0]
+    S, s = lq.lxx_f, lq.lx_f
+    Ks, kffs = [None] * N, [None] * N
+    for k in reversed(range(N)):
+        A, B, d = lq.A[k], lq.B[k], lq.d[k]
+        Sd_s = S @ d + s
+        Qx = lq.lx[k] + A.T @ Sd_s
+        Qu = lq.lu[k] + B.T @ Sd_s
+        Qxx = lq.lxx[k] + A.T @ S @ A
+        Quu = lq.luu[k] + B.T @ S @ B
+        Qux = lq.lux[k] + B.T @ S @ A
+        rhs = torch.cat([Qux, Qu[:, None]], dim=-1)
+        sol = -spd_solve(_sym(Quu)[None].contiguous(), rhs[None].contiguous())[0]
+        K, kff = sol[:, :nx], sol[:, nx]
+        S = _sym(Qxx + Qux.T @ K)
+        s = Qx + Qux.T @ kff
+        Ks[k], kffs[k] = K, kff
+    return torch.stack(Ks), torch.stack(kffs), S, s
+
+
+def riccati_forward(lq: ProjectedLq, K, kff, dx0):
+    """Forward rollout of one scenario's LQ solution with the dense input
+    recovery du = p + Pu u_red + Px dx. Returns (dX (N+1,nx),
+    dU_red (N,nu_red), dU (N,nu))."""
+    N = lq.A.shape[0]
+    dx = dx0
+    dXs, dU_reds, dUs = [], [], []
+    for k in range(N):
+        u_red = kff[k] + K[k] @ dx
+        dXs.append(dx)
+        dU_reds.append(u_red)
+        dUs.append(lq.p[k] + lq.Pu[k] @ u_red + lq.Px[k] @ dx)
+        dx = lq.A[k] @ dx + lq.B[k] @ u_red + lq.d[k]
+    dXs.append(dx)
+    return torch.stack(dXs), torch.stack(dU_reds), torch.stack(dUs)
+
+
+def lqr_solve(lq: ProjectedLq, dx0):
+    """Backward + forward sweeps of one scenario. Returns (dX, dU, K, kff)."""
+    K, kff, _, _ = riccati_backward(lq)
+    dX, _, dU = riccati_forward(lq, K, kff, dx0)
     return dX, dU, K, kff

@@ -6,6 +6,8 @@ kernel, here in interpret mode); ``bm_fused`` against JAX ``bm_fused``;
 ``lq_fused`` against JAX ``bm_xla`` (JAX's own ``pallas`` backend passes no
 ``interpret`` and cannot run on the CPU; its LQ stage is held against
 ``pallas_lq.solve_lq_batched`` in tests/test_torch_solver.py)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,8 @@ def _t_step(P, X=None, U=None, dtype=F64, backend="bm_k1"):
 
         tm = tm.to(dtype=dtype)
         to = make_ocp_config(tm, P.tcfg)
-        stage = type(stage)(**{k: v.to(dtype) for k, v in vars(stage).items()})
+        stage = dataclasses.replace(stage, **{k: v.to(dtype) for k, v in vars(stage).items()
+                                              if v is not None})
     cast = lambda a: torch.tensor(np.asarray(a), dtype=dtype)  # noqa: E731
     return t_bsqp.batched_sqp_iteration(
         tm, to, stage, P.tcfg.sqp.dt, t_settings(P.tcfg.sqp),

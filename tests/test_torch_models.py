@@ -227,12 +227,6 @@ def test_flow_map_under_torch_vmap(models):
         to_np(t_cen.flow_map(tm, x, u)), **TOL)
 
 
-def test_flow_map_any_rejects_force_tracking_width(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError):
-        t_cen.flow_map_any(tm, torch.zeros(30, dtype=F64), torch.zeros(36, dtype=F64))
-
-
 def test_weight_compensating_input_matches_jax(models):
     jm, tm = models
     from qm_door_tpu.ocp.gait import mode_to_flags

@@ -157,16 +157,14 @@ def test_make_ocp_config_matches_jax(P):
 
 
 def test_unported_options_raise(P):
+    """The self-collision cost is the one OCP option not ported."""
     cfg = P.tcfg.__class__()
-    cfg.model.arm_locked = True
-    with pytest.raises(NotImplementedError):
+    cfg.self_collision.mu = 1.0
+    with pytest.raises(NotImplementedError, match="self-collision"):
         t_prob.make_ocp_config(P.tmodel, cfg)
     jd = as_numpy_fields(P.jocp)
-    with pytest.raises(NotImplementedError):
-        convert.ocp_config_from_numpy(dict(jd, arm_locked=True), device="cpu")
-    sd = as_numpy_fields(P.jstage)
-    with pytest.raises(NotImplementedError):
-        convert.stage_data_from_numpy(dict(sd, grasp_flags=np.ones(11)), device="cpu")
+    with pytest.raises(NotImplementedError, match="self-collision"):
+        convert.ocp_config_from_numpy(dict(jd, self_collision_mu=1.0), device="cpu")
 
 
 @pytest.mark.parametrize("k", [0, 3, 9])

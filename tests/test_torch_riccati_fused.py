@@ -147,8 +147,11 @@ def test_unknown_riccati_backend_raises():
 
 
 @pytest.mark.parametrize("field", ["Pu", "Px", "grasp_gate"])
-def test_converter_refuses_what_the_port_does_not_hold(field):
+def test_converter_carries_either_recovery_form(field):
+    """The dense recovery maps of the per-scenario path and the force-tracking
+    gate come across as given."""
     d = as_numpy_fields(_random_plq((2, 3, 4, 3)))
-    d[field] = np.zeros((2, 3, 4, 3))
-    with pytest.raises(ValueError, match=field):
-        convert.projected_lq_from_numpy(d, device="cpu")
+    d[field] = np.random.default_rng(len(field)).normal(size=(2, 3, 4, 3))
+    plq = convert.projected_lq_from_numpy(d, device="cpu")
+    np.testing.assert_array_equal(getattr(plq, field).numpy(), d[field])
+    assert getattr(plq, field).dtype == torch.float64

@@ -134,19 +134,10 @@ def test_lq_fused_stage_matches_jax_pallas_lq(P, j_lq, t_lq_from_jax, flags):
     np.testing.assert_allclose(to_np(dU), np.asarray(dUj), err_msg="dU", **tol)
 
 
-def test_projection_rejects_force_tracking_width(t_lq_from_jax, flags, P):
-    with pytest.raises(NotImplementedError):
-        t_tr.project_ocp_batched(t_lq_from_jax, P.t(flags), torch.zeros(2, P.N, 36,
-                                                                     dtype=torch.float64))
-
-
 @pytest.mark.parametrize("tangents,sensitivity,error", [
     ("analytc", "frozen", ValueError),
     ("", "frozen", ValueError),
     ("analytic", "exact", ValueError),
-    ("f32", "frozen", NotImplementedError),
-    ("bf16", "frozen", NotImplementedError),
-    ("analytic", "rk2", NotImplementedError),
 ])
 def test_linearization_settings_are_validated(P, tangents, sensitivity, error):
     cfg = P.tcfg.__class__()

@@ -25,12 +25,13 @@ def to_np(t):
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def configs(lin_tangents="analytic"):
-    from qm_door_torch.config import default_config as t_default
-    from qm_door_tpu.config import default_config as j_default
+def configs(lin_tangents="analytic", quad_only=False):
+    from qm_door_torch import config as t_config
+    from qm_door_tpu import config as j_config
 
+    name = "quad_only_config" if quad_only else "default_config"
     out = []
-    for make in (j_default, t_default):
+    for make in (getattr(j_config, name), getattr(t_config, name)):
         cfg = make()
         cfg.mpc.time_horizon = HORIZON
         cfg.sqp.linesearch_steps = 2
@@ -43,7 +44,7 @@ def configs(lin_tangents="analytic"):
 class Problem:
     """Both packages' model, OCP config, stage data and a perturbed batch."""
 
-    def __init__(self, B=3, seed=3, lin_tangents="analytic", x_scale=0.03):
+    def __init__(self, B=3, seed=3, lin_tangents="analytic", x_scale=0.03, quad_only=False):
         import jax.numpy as jnp
         from qm_door_tpu.models import aliengo_z1, kinematics, spatial
         from qm_door_tpu.ocp.gait import GAIT_LIBRARY, GaitSchedule
@@ -53,7 +54,7 @@ class Problem:
         from qm_door_torch.models.model import aliengo_z1 as t_aliengo_z1
         from qm_door_torch.ocp.problem import make_ocp_config as t_make_ocp_config
 
-        self.jcfg, self.tcfg = configs(lin_tangents)
+        self.jcfg, self.tcfg = configs(lin_tangents, quad_only)
         self.jmodel = aliengo_z1(dtype=jnp.float64)
         self.jocp = make_ocp_config(self.jmodel, self.jcfg)
         x0 = jnp.asarray(self.jcfg.initial_state())
@@ -79,3 +80,28 @@ class Problem:
 
     def t(self, a):
         return torch.tensor(np.asarray(a), dtype=F64)
+
+
+GRASP_FROM = 0.06  # s: the short horizon's later nodes grasp
+WRENCH_REF = (4.0, 0.0, -9.0, 0.0, 0.0, 0.4)
+
+
+class ProblemFT(Problem):
+    """The force-tracking problem (nu = 36) in both packages: the trot stage
+    widened with a grasp from GRASP_FROM on and the wrench reference
+    WRENCH_REF, the widened R, and inputs with zero wrench (each package's
+    own ocp/force.py builds its side)."""
+
+    def __init__(self, B=2, seed=5, lin_tangents="analytic", x_scale=0.03):
+        from qm_door_torch.ocp import force as t_force
+        from qm_door_tpu.ocp import force as j_force
+
+        super().__init__(B=B, seed=seed, lin_tangents=lin_tangents, x_scale=x_scale)
+        times = np.asarray(self.jstage.times)
+        self.grasp = (times >= GRASP_FROM).astype(float)
+        self.wref = np.tile(np.asarray(WRENCH_REF), (times.shape[0], 1))
+        self.jocp = j_force.make_ocp_config_ft(self.jmodel, self.jcfg)
+        self.jstage = j_force.widen_stage_data(self.jstage, self.grasp, self.wref)
+        self.tocp = t_force.make_ocp_config_ft(self.tmodel, self.tcfg)
+        self.tstage = t_force.widen_stage_data(self.tstage, self.grasp, self.wref)
+        self.U = np.concatenate([self.U, np.zeros(self.U.shape[:-1] + (6,))], axis=-1)
