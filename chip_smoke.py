@@ -17,7 +17,8 @@ Phases:
       reg, smem), each with CUDA events over chained calls (`ms`, as every
       kernel) and in a CUDA graph (`ms_graph`), beside the plain version
       and torch.linalg (cholesky + cholesky_solve); checks ragged batches
-      (half-filled blocks), n = 1,
+      (half-filled blocks), the per-scenario solve's shapes (67 x 12 x 18,
+      1 x 30 x 31), n = 1,
       16, 17, 32, 33 and 64, m = 64 and 65, odd RHS widths, a shift, a
       misaligned base, NaN above the diagonal (never read), that each goes
       to the variant k1_variant names, and that the wrapper refuses
@@ -84,18 +85,22 @@ Phases:
       variant at 384 x 36 x 31 (node 0's gain system at the warm iterate,
       within 1e-4 of f64) and K2's smem variant at 384 x 67 x 30 x 36
       (within 1e-3 of f64), each timed beside its bound and its plain
-      version (K1 also beside torch.linalg); the other options on bm_k1, a
-      cold and 2 warm steps each with the launches checked
-      (lin_tangents f32 and bf16, sensitivity rk2, arm_locked on
-      quad_only_config, per-scenario stage data); one SqpSolver.solve
-      (nu = 30) and one warm-started from it, host ms and K1 launches (68 a
-      solve: 1 reg16 + 67 reg32).
+      version (K1 also beside torch.linalg); the other options on bm_k1
+      with the launches checked: lin_tangents f32 and bf16 a cold and 20
+      warm steps each, mean violation <= 1e-5; sensitivity rk2, arm_locked
+      on quad_only_config and per-scenario stage data a cold and 2 warm
+      steps each, and (c)'s cross-precision check for each; one
+      SqpSolver.solve (nu = 30) and one warm-started from it, host ms and K1
+      launches (68 a solve: 1 reg16 + 67 reg32), every K1 call of the two
+      solves within 1e-4 of its f64 plain version, and each solution
+      against the same solve on the CPU in f64 within (c)'s bars.
 
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
 second time, on (g)'s force-tracking path); the last line is {"ok": true,
 "device": {...}}.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -393,6 +398,47 @@ def k1_run(A, Y, X_ref, label, shift=0.0, variant=None):
     return X, rel, want
 
 
+@contextlib.contextmanager
+def k1_calls(*modules):
+    """Records every call the given modules make to their spd_solve (K1's
+    wrapper) as (A, Y, shift, X) while the context is open."""
+    calls, solves = [], [m.spd_solve for m in modules]
+
+    def recording(solve):
+        def call(A, Y, shift=0.0, **kw):
+            X = solve(A, Y, shift, **kw)
+            calls.append((A, Y, shift, X))
+            return X
+        return call
+
+    for m, solve in zip(modules, solves):
+        m.spd_solve = recording(solve)
+    try:
+        yield calls
+    finally:
+        for m, solve in zip(modules, solves):
+            m.spd_solve = solve
+
+
+def check_k1_calls(calls, label):
+    """Each recorded K1 call's result against spd_solve_plain in f64 on the
+    same inputs: fails above K1_REL_TOL (relative to max|X_ref| of the call).
+    Returns the worst relative error and the calls by shape."""
+    from qm_door_torch.ops.spd_solve import spd_solve_plain
+
+    worst, shapes = 0.0, {}
+    for A, Y, shift, X in calls:
+        ref = spd_solve_plain(A.double(), Y.double(), shift)
+        rel = (X.double() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if not rel <= K1_REL_TOL:
+            raise RuntimeError(f"K1 {label} at {tuple(Y.shape)}: relative error {rel:.3e} "
+                               f"> {K1_REL_TOL}")
+        worst = max(worst, rel)
+        key = "x".join(map(str, Y.shape))
+        shapes[key] = shapes.get(key, 0) + 1
+    return worst, shapes
+
+
 def phase_kernels(dev):
     """(a) hold K1 against its plain versions, time its variants in turns."""
     import torch
@@ -458,6 +504,8 @@ K1_EDGES = (  # batch, n, m, shift
     # large batches that leave the last 4-warp block half filled, and a
     # grid stride with a ragged last round
     (4 * 1000 + 2, 12, 49, 0.0), (40003, 12, 49, 0.0), (3 * 1031 + 1, 30, 31, 0.0),
+    # (g)'s SqpSolver.solve: the projection's node solves and a one-system gain
+    (67, 12, 18, 0.0), (1, 30, 31, 0.0),
 )
 
 
@@ -1436,42 +1484,44 @@ def phase_pairs(runs):
     log("[f] " + json.dumps(row))
 
 
-def cross_steps(device, dtype, backend, force_tracking):
-    """3 steps at B = 4 (lin_tangents="analytic") from the cold start:
+def cross_steps(device, dtype, backend, problem):
+    """3 steps at B = 4 from the cold start of make_problem's problem with
+    the options `problem` (lin_tangents "analytic" unless it names one):
     (X, U, stats) in f64 on the CPU."""
-    mpc, stage, x_batch, X, U = make_problem(device, dtype, 4, "analytic", backend,
-                                             force_tracking=force_tracking)
+    mpc, stage, x_batch, X, U = make_problem(device, dtype, 4, backend=backend,
+                                             **dict(dict(lin_tangents="analytic"), **problem))
     for _ in range(3):
         X, U, stats = mpc.step(stage, x_batch, X, U)
     return X.double().cpu(), U.double().cpu(), [t.double().cpu() for t in stats]
 
 
-def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", force_tracking=False):
-    """(c) 3 steps at B = 4, GPU f32 against CPU f64 (lin_tangents="analytic"),
-    on the 30-input problem or the force-tracking one (max|dU| over all 36
-    inputs there). The CPU f64 run takes bm_k1's path (the plain solves),
-    once a problem, and serves every backend's check: in f64 the backends
-    agree to 1e-8 (tests/test_torch_batched_sqp.py). `refs` keeps the CPU
-    runs made, by problem."""
+def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", **problem):
+    """(c) 3 steps at B = 4, GPU f32 against CPU f64, on the 30-input
+    problem or on make_problem's problem with the options `problem` (the
+    force-tracking one: max|dU| over all 36 inputs). The CPU f64 run takes
+    bm_k1's path (the plain solves), once a problem, and serves every
+    backend's check: in f64 the backends agree to 1e-8
+    (tests/test_torch_batched_sqp.py). `refs` keeps the CPU runs made, by
+    problem."""
     import torch
 
-    if force_tracking not in refs:
-        refs[force_tracking] = cross_steps(torch.device("cpu"), torch.float64, "bm_k1",
-                                           force_tracking)
-    out = {"gpu_f32": cross_steps(dev, torch.float32, backend, force_tracking),
-           "cpu_f64": refs[force_tracking]}
+    key = tuple(sorted(problem.items()))
+    if key not in refs:
+        refs[key] = cross_steps(torch.device("cpu"), torch.float64, "bm_k1", problem)
+    out = {"gpu_f32": cross_steps(dev, torch.float32, backend, problem), "cpu_f64": refs[key]}
     dX = (out["gpu_f32"][0] - out["cpu_f64"][0]).abs().max().item()
     dU = (out["gpu_f32"][1] - out["cpu_f64"][1]).abs().max().item()
     dF = (out["gpu_f32"][1][..., :12] - out["cpu_f64"][1][..., :12]).abs().max().item()
-    row = {"backend": backend, "nu": int(out["cpu_f64"][1].shape[-1]), "X_err_max": dX,
-           "U_err_max": dU, "force_err_max_N": dF,
+    row = {"backend": backend, "problem": problem, "nu": int(out["cpu_f64"][1].shape[-1]),
+           "X_err_max": dX, "U_err_max": dU, "force_err_max_N": dF,
            "cost": {k: v[2][0].tolist() for k, v in out.items()},
            "violation": {k: v[2][1].tolist() for k, v in out.items()},
            "alpha": {k: v[2][2].tolist() for k, v in out.items()}}
     log(f"[{tag}] " + json.dumps(row))
     if not (dX <= CROSS_DX_MAX and dU <= CROSS_DU_MAX):
-        raise RuntimeError(f"cross precision ({backend}): max|dX| {dX:.3e} (<= {CROSS_DX_MAX}), "
-                           f"max|dU| {dU:.3e} (<= {CROSS_DU_MAX})")
+        raise RuntimeError(f"cross precision ({backend}, {problem}): max|dX| {dX:.3e} "
+                           f"(<= {CROSS_DX_MAX}), max|dU| {dU:.3e} (<= {CROSS_DU_MAX})")
+    return row
 
 
 # launches a step of the force-tracking problem (nu = 36): the gain solves
@@ -1481,12 +1531,17 @@ FT_EXPECT = {
     "bm_fused": ({"K1": 1, "K2": 1}, {"reg16": 1}, {"K2": {"smem": 1}}),
 }
 OPTION_WARM_STEPS = 2
-OPTIONS = {  # (g) the other options on bm_k1: make_problem's keyword arguments
-    "lin_tangents_f32": dict(lin_tangents="f32"),
-    "lin_tangents_bf16": dict(lin_tangents="bf16"),
-    "sensitivity_rk2": dict(sensitivity="rk2"),
-    "arm_locked": dict(quad_only=True),
-    "shared_stage_false": dict(shared_stage=False),
+# (g) the other options on bm_k1: make_problem's keyword arguments and the
+# check. The tangent families change only the Newton direction (bf16 rounds
+# it on purpose), so a step-by-step comparison with f64 would measure that
+# rounding: they are held to (b)'s violation bar after (b)'s warm steps. The
+# others change the problem: (c)'s cross-precision bars after 3 steps.
+OPTIONS = {
+    "lin_tangents_f32": (dict(lin_tangents="f32"), "violation"),
+    "lin_tangents_bf16": (dict(lin_tangents="bf16"), "violation"),
+    "sensitivity_rk2": (dict(sensitivity="rk2"), "cross"),
+    "arm_locked": (dict(quad_only=True), "cross"),
+    "shared_stage_false": (dict(shared_stage=False), "cross"),
 }
 
 
@@ -1529,7 +1584,7 @@ def phase_force_tracking(dev, refs):
     rows["K1_smem"] = ft_gain_kernel(runs["bm_k1"])
     rows["K2_smem"] = ft_sweep_kernel(runs["bm_fused"])
     seconds["kernels"], t0 = time.time() - t0, time.time()
-    phase_options(dev)
+    phase_options(dev, refs)
     seconds["options"], t0 = time.time() - t0, time.time()
     phase_single_solve(dev)
     seconds["single_solve"] = time.time() - t0
@@ -1548,14 +1603,10 @@ def ft_gain_kernel(run):
     from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
     from qm_door_torch.solver import riccati
 
-    plq, lq_data = run["lq_data"]["plq"], run["lq_data"]
-    calls, solve = [], riccati.spd_solve
-    riccati.spd_solve = lambda A, Y, *a, **k: calls.append((A, Y)) or solve(A, Y, *a, **k)
-    try:
+    plq = run["lq_data"]["plq"]
+    with k1_calls(riccati) as calls:
         riccati.lqr_solve_batched(plq, run["x_batch"] - run["X"][:, 0])
-    finally:
-        riccati.spd_solve = solve
-    A, Y = calls[-1]
+    A, Y = calls[-1][:2]
     batch, n, m = Y.shape
     if (batch, n, m) != (BATCH, 36, 31) or k1_variant(n, m) != "smem":
         raise RuntimeError(f"K1 at the nu = 36 gain: shape {(batch, n, m)}, variant "
@@ -1597,64 +1648,104 @@ def ft_sweep_kernel(run):
     return row
 
 
-def phase_options(dev):
+def phase_options(dev, refs):
     """(g) the other options on the card, each on bm_k1 at B = 384: one cold
-    and OPTION_WARM_STEPS warm steps, the launches a step checked (K1 68:
-    67 reg32 + 1 reg16), the step ms and mean violation printed."""
+    and WARM_STEPS warm steps held to VIOLATION_MAX, or OPTION_WARM_STEPS
+    warm steps and (c)'s cross-precision check (OPTIONS says which); the
+    launches a step checked (K1 68: 67 reg32 + 1 reg16), the step ms and
+    mean violation printed."""
     import torch
 
     out = {}
-    for name, kw in OPTIONS.items():
-        kw = dict(dict(lin_tangents="analytic_bf16"), **kw)
-        problem = make_problem(dev, torch.float32, BATCH, backend="bm_k1", **kw)
-        run = drive(dev, "bm_k1", "g", problem=problem, warm_steps=OPTION_WARM_STEPS,
-                    viol_max=None)
-        out[name] = {"step_ms": 1e3 * run["elapsed"] / OPTION_WARM_STEPS,
+    for name, (kw, check) in OPTIONS.items():
+        problem = make_problem(dev, torch.float32, BATCH, backend="bm_k1",
+                               **dict(dict(lin_tangents="analytic_bf16"), **kw))
+        converge = check == "violation"
+        warm = WARM_STEPS if converge else OPTION_WARM_STEPS
+        run = drive(dev, "bm_k1", "g", problem=problem, warm_steps=warm,
+                    viol_max=VIOLATION_MAX if converge else None)
+        out[name] = {"check": check, "step_ms": 1e3 * run["elapsed"] / warm,
                      "cold_step_s": run["cold_s"], "mean_violation": run["viol"],
                      "steps": run["steps"], "K1_launches": run["launches"]["K1"]}
         del run, problem
         torch.cuda.empty_cache()
+        if not converge:
+            cross = phase_cross_precision(dev, refs, "bm_k1", "g", **kw)
+            out[name].update(cross_X_err_max=cross["X_err_max"],
+                             cross_U_err_max=cross["U_err_max"])
     log("[g] options: " + json.dumps(out))
 
 
+def solve_pair(device, dtype, around=lambda name, solve: solve()):
+    """SqpSolver.solve of one scenario (nu = 30, lin_tangents "analytic",
+    the config's sqp_iterations) from the bench problem's first initial
+    state, then one warm-started from it on the grid one node later, from
+    its planned state; each solve runs as around(name, solve). Returns the
+    two solutions by name and the iterations a solve."""
+    mpc, stage, x_batch, _, _ = make_problem(device, dtype, 1, "analytic")
+    solver = mpc.solver
+    sols, sol = {}, None
+    for name in ("cold", "warm"):
+        if name == "warm":  # the next MPC tick
+            x0 = sol.X[1].clone()
+            stage = make_problem(device, dtype, 1, "analytic", t0=solver.settings.dt)[1]
+        else:
+            x0 = x_batch[0]
+        warm = None if sol is None else (sol.times, sol.X, sol.U)
+        sol = sols[name] = around(name, lambda: solver.solve(stage, x0, warm=warm))
+    return sols, solver.settings.sqp_iterations
+
+
 def phase_single_solve(dev):
-    """(g) SqpSolver.solve of one scenario (nu = 30, the config's
-    sqp_iterations), then one solve warm-started from it on the grid one
-    node later: host ms and K1 launches of each (68 an iteration: the
-    projection's node solves, reg16, and 67 gain solves of one system, reg32)."""
+    """(g) solve_pair on the card: host ms and K1 launches of each solve (68
+    an iteration: the projection's node solves, reg16, and 67 gain solves
+    of one system, reg32), every K1 call of the solve held against its f64
+    plain version, and both solutions against the same solves on the CPU in
+    f64 within (c)'s bars."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.solver import projection, riccati
 
-    mpc, stage, x_batch, _, _ = make_problem(dev, torch.float32, 1, "analytic_bf16")
-    solver = mpc.solver
-    iters = solver.settings.sqp_iterations
-    out, sol = {}, None
-    for name in ("cold", "warm"):
-        if name == "warm":  # the next MPC tick: one node later, from the planned state
-            x0 = sol.X[1].clone()
-            stage = make_problem(dev, torch.float32, 1, "analytic_bf16",
-                                 t0=solver.settings.dt)[1]
-        else:
-            x0 = x_batch[0]
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        new = solver.solve(stage, x0, warm=None if sol is None else (sol.times, sol.X, sol.U))
-        torch.cuda.synchronize()
-        ms = (time.time() - t0) * 1e3
-        launches = read_launches()
-        by_variant = dict(spd_solve.launches_by_variant)
+    out = {}
+
+    def around(name, solve):
+        with k1_calls(riccati, projection) as calls:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            new = solve()
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            launches = read_launches()
+            by_variant = dict(spd_solve.launches_by_variant)
         want = {kid: 68 * iters if kid == "K1" else 0 for kid in launches}
         want_v = {"reg16": iters, "reg32": 67 * iters, "smem": 0}
         ok = bool(torch.isfinite(new.X).all() and torch.isfinite(new.U).all())
-        if launches != want or by_variant != want_v or not ok or not float(new.step_size) > 0:
+        if (launches != want or by_variant != want_v or len(calls) != launches["K1"] or not ok
+                or not float(new.step_size) > 0):
             raise RuntimeError(f"SqpSolver.solve ({name}): launches {launches}, K1 by variant "
-                               f"{by_variant}, finite {ok}, step {float(new.step_size)}")
+                               f"{by_variant}, K1 calls recorded {len(calls)}, finite {ok}, "
+                               f"step {float(new.step_size)}")
+        rel, shapes = check_k1_calls(calls, f"in SqpSolver.solve ({name})")
         out[name] = {"host_ms": ms, "K1_launches": launches["K1"], "K1_by_variant": by_variant,
+                     "K1_calls_by_shape": shapes, "K1_rel_err_max": rel,
                      "cost": float(new.cost), "violation": float(new.constraint_violation),
                      "step_size": float(new.step_size)}
-        sol = new
+        return new
+
+    ref, iters = solve_pair(torch.device("cpu"), torch.float64)
+    sols = solve_pair(dev, torch.float32, around)[0]
+    for name, sol in sols.items():
+        dX = (sol.X.double().cpu() - ref[name].X).abs().max().item()
+        dU = (sol.U.double().cpu() - ref[name].U).abs().max().item()
+        out[name].update(X_err_max=dX, U_err_max=dU, cpu_f64={
+            "cost": float(ref[name].cost), "violation": float(ref[name].constraint_violation),
+            "step_size": float(ref[name].step_size)})
+        if not (dX <= CROSS_DX_MAX and dU <= CROSS_DU_MAX):
+            raise RuntimeError(f"SqpSolver.solve ({name}): GPU f32 against CPU f64 max|dX| "
+                               f"{dX:.3e} (<= {CROSS_DX_MAX}), max|dU| {dU:.3e} "
+                               f"(<= {CROSS_DU_MAX})")
     log("[g] SqpSolver.solve: " + json.dumps(out))
 
 

@@ -28,35 +28,40 @@ NU_RED_PROJ = 30
 NU_FT = 36
 
 
+def arm_lock(Gv, g0, v_arm, arm_locked: bool):
+    """The quad-only arm lock as an input-space equality u_arm = 0: the
+    arm-velocity delta pinned to -v_arm (the current arm joint velocities,
+    u_bar[24:30]) and the velocity constraint left to the 12 leg columns.
+    Returns (col_mask (18,), Gv with the arm columns zeroed, p_lock
+    (..., 18), g0 + Gv p_lock); unlocked (ones, Gv, None, g0)."""
+    dtype, dev = g0.dtype, g0.device
+    if not arm_locked:
+        return torch.ones(18, dtype=dtype, device=dev), Gv, None, g0
+    col_mask = torch.cat([torch.ones(12, dtype=dtype, device=dev),
+                          torch.zeros(6, dtype=dtype, device=dev)])
+    p_lock = torch.cat([torch.zeros(*v_arm.shape[:-1], 12, dtype=dtype, device=dev), -v_arm],
+                       dim=-1)
+    return col_mask, Gv * col_mask, p_lock, g0 + fmv(Gv, p_lock)
+
+
 def project_node_chol(flags, F_bar, g0, Gx, Gv, shift, v_arm=None, arm_locked: bool = False):
     """du = p + Pu u_red + Px dx with u_red in R^30. Returns (p (...,30),
     Pu (...,30,30), Px (...,30,30), reg (...,30,30)).
 
-    ``arm_locked``: the quadruped-only variant as an input-space equality
-    u_arm = 0 — the arm-velocity delta is pinned to -v_arm (the current arm
-    joint velocities u_bar[24:30]), the velocity constraint is re-solved over
-    the 12 leg columns only, and the arm's reduced dims are
-    identity-regularized."""
+    ``arm_locked``: the quadruped-only variant (``arm_lock``), the arm's
+    reduced dims identity-regularized."""
     dtype, dev = g0.dtype, g0.device
     lead = g0.shape[:-1]
     active = cons.velocity_row_mask(flags)                          # (..., 12)
-    if arm_locked:
-        col_mask = torch.cat([torch.ones(12, dtype=dtype, device=dev),
-                              torch.zeros(6, dtype=dtype, device=dev)])
-        Gv_f = Gv * col_mask
-        p_lock = torch.cat([torch.zeros(*lead, 12, dtype=dtype, device=dev), -v_arm], dim=-1)
-        g0_eff = g0 + fmv(Gv, p_lock)
-    else:
-        col_mask = torch.ones(18, dtype=dtype, device=dev)
-        Gv_f = Gv
-        p_lock = torch.zeros(*lead, 18, dtype=dtype, device=dev)
-        g0_eff = g0
+    col_mask, Gv_f, p_lock, g0_eff = arm_lock(Gv, g0, v_arm, arm_locked)
     M = Gv_f @ Gv_f.transpose(-1, -2) + torch.diag_embed(1.0 - active)
     pinvT = spd_solve(M.reshape(-1, 12, 12).contiguous(),
                       Gv_f.reshape(-1, 12, 18).contiguous()).reshape(*lead, 12, 18)
     GvPinv = pinvT.transpose(-1, -2)                                 # (..., 18, 12) = Gv_f^+
 
-    du_part = p_lock - fmv(GvPinv, g0_eff)                           # (..., 18)
+    du_part = -fmv(GvPinv, g0_eff)                                   # (..., 18)
+    if p_lock is not None:
+        du_part = p_lock + du_part
     Px_v = -GvPinv @ Gx                                              # (..., 18, 30)
     P = torch.diag(col_mask) - GvPinv @ Gv_f                         # (..., 18, 18) projector
 

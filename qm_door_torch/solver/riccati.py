@@ -13,8 +13,9 @@ the whole backward sweep is one launch of K2 (``ops/riccati_fused.py``),
 then the same forward loop.
 
 Per-scenario sweeps (``riccati_backward``, ``riccati_forward``,
-``lqr_solve``): the same loops over (N, ...) data, each gain solve a K1
-call with a batch of one system.
+``lqr_solve``): the batch-major sweeps on (N, ...) data given a leading
+batch of one, so each gain solve is a K1 call with one system and the
+input recovery takes the dense form.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def _sym(M):
 
 
 def riccati_backward_batched(lq: ProjectedLq):
-    """Backward sweep over (B, N, ...) LQ data. Returns K (B,N,nu,nx),
-    kff (B,N,nu)."""
+    """Backward sweep over (B, N, ...) LQ data. Returns (K (B,N,nu,nx),
+    kff (B,N,nu), S0 (B,nx,nx), s0 (B,nx))."""
     nx = lq.A.shape[-1]
     N = lq.A.shape[1]
     S, s = lq.lxx_f, lq.lx_f
@@ -55,14 +56,14 @@ def riccati_backward_batched(lq: ProjectedLq):
         S = _sym(Qxx + fmm(QuxT, K))
         s = Qx + fmv(QuxT, kff)
         Ks[k], kffs[k] = K, kff
-    return torch.stack(Ks, dim=1), torch.stack(kffs, dim=1)
+    return torch.stack(Ks, dim=1), torch.stack(kffs, dim=1), S, s
 
 
 def _recover(lq: ProjectedLq, k, u_red, dx):
     """du = p + Pu u_red + Px dx at node k of batch-major data: dense when
-    the projection carried Pu / Px, else structured — the force (and
-    wrench) dims are elementwise gates, only the 18 joint-velocity dims
-    need products."""
+    the projection carried Pu / Px (the per-scenario path), else
+    structured — the force (and wrench) dims are elementwise gates, only
+    the 18 joint-velocity dims need products."""
     if lq.P is None:
         return lq.p[:, k] + fmv(lq.Pu[:, k], u_red) + fmv(lq.Px[:, k], dx)
     parts = [lq.force_mask[:, k] * u_red[..., 0:12],
@@ -73,17 +74,19 @@ def _recover(lq: ProjectedLq, k, u_red, dx):
 
 
 def riccati_forward_batched(lq: ProjectedLq, K, kff, dx0):
-    """Forward rollout over (B, N, ...). Returns (dX (B,N+1,nx), dU (B,N,nu))."""
+    """Forward rollout over (B, N, ...). Returns (dX (B,N+1,nx),
+    dU_red (B,N,nu_red), dU (B,N,nu))."""
     N = lq.A.shape[1]
     dx = dx0
-    dXs, dUs = [], []
+    dXs, dU_reds, dUs = [], [], []
     for k in range(N):
         u_red = kff[:, k] + fmv(K[:, k], dx)
+        dU_reds.append(u_red)
         dUs.append(_recover(lq, k, u_red, dx))
         dXs.append(dx)
         dx = fmv(lq.A[:, k], dx) + fmv(lq.B[:, k], u_red) + lq.d[:, k]
     dXs.append(dx)
-    return torch.stack(dXs, dim=1), torch.stack(dUs, dim=1)
+    return torch.stack(dXs, dim=1), torch.stack(dU_reds, dim=1), torch.stack(dUs, dim=1)
 
 
 RICCATI_BACKENDS = ("k1", "fused")
@@ -98,62 +101,36 @@ def lqr_solve_batched(lq: ProjectedLq, dx0, backend: str = "k1"):
     Hessian shift already sits in the projected luu), as the JAX package's
     ``lqr_solve_batched(backend="fused")``."""
     if backend == "k1":
-        K, kff = riccati_backward_batched(lq)
+        K, kff, _, _ = riccati_backward_batched(lq)
     elif backend == "fused":
         K, kff = riccati_backward_fused_lq(lq)
     else:
         raise ValueError(f"backend={backend!r}: expected one of {RICCATI_BACKENDS}")
-    dX, dU = riccati_forward_batched(lq, K, kff, dx0)
+    dX, _, dU = riccati_forward_batched(lq, K, kff, dx0)
     return dX, dU, K, kff
 
 
 # ---------------------------------------------------------------------------
-# per-scenario sweeps
+# per-scenario sweeps: the batch-major ones on a batch of one
 # ---------------------------------------------------------------------------
+
+def _batch_of_one(lq: ProjectedLq) -> ProjectedLq:
+    return ProjectedLq(**{k: None if v is None else v[None] for k, v in vars(lq).items()})
+
 
 def riccati_backward(lq: ProjectedLq):
     """Backward sweep over one scenario's (N, ...) data. Returns
     (K (N,nu,nx), kff (N,nu), S0, s0)."""
-    nx = lq.A.shape[-1]
-    N = lq.A.shape[0]
-    S, s = lq.lxx_f, lq.lx_f
-    Ks, kffs = [None] * N, [None] * N
-    for k in reversed(range(N)):
-        A, B, d = lq.A[k], lq.B[k], lq.d[k]
-        Sd_s = S @ d + s
-        Qx = lq.lx[k] + A.T @ Sd_s
-        Qu = lq.lu[k] + B.T @ Sd_s
-        Qxx = lq.lxx[k] + A.T @ S @ A
-        Quu = lq.luu[k] + B.T @ S @ B
-        Qux = lq.lux[k] + B.T @ S @ A
-        rhs = torch.cat([Qux, Qu[:, None]], dim=-1)
-        sol = -spd_solve(_sym(Quu)[None].contiguous(), rhs[None].contiguous())[0]
-        K, kff = sol[:, :nx], sol[:, nx]
-        S = _sym(Qxx + Qux.T @ K)
-        s = Qx + Qux.T @ kff
-        Ks[k], kffs[k] = K, kff
-    return torch.stack(Ks), torch.stack(kffs), S, s
+    return tuple(t[0] for t in riccati_backward_batched(_batch_of_one(lq)))
 
 
 def riccati_forward(lq: ProjectedLq, K, kff, dx0):
-    """Forward rollout of one scenario's LQ solution with the dense input
-    recovery du = p + Pu u_red + Px dx. Returns (dX (N+1,nx),
-    dU_red (N,nu_red), dU (N,nu))."""
-    N = lq.A.shape[0]
-    dx = dx0
-    dXs, dU_reds, dUs = [], [], []
-    for k in range(N):
-        u_red = kff[k] + K[k] @ dx
-        dXs.append(dx)
-        dU_reds.append(u_red)
-        dUs.append(lq.p[k] + lq.Pu[k] @ u_red + lq.Px[k] @ dx)
-        dx = lq.A[k] @ dx + lq.B[k] @ u_red + lq.d[k]
-    dXs.append(dx)
-    return torch.stack(dXs), torch.stack(dU_reds), torch.stack(dUs)
+    """Forward rollout of one scenario's LQ solution. Returns
+    (dX (N+1,nx), dU_red (N,nu_red), dU (N,nu))."""
+    return tuple(t[0] for t in riccati_forward_batched(_batch_of_one(lq), K[None], kff[None],
+                                                       dx0[None]))
 
 
 def lqr_solve(lq: ProjectedLq, dx0):
     """Backward + forward sweeps of one scenario. Returns (dX, dU, K, kff)."""
-    K, kff, _, _ = riccati_backward(lq)
-    dX, _, dU = riccati_forward(lq, K, kff, dx0)
-    return dX, dU, K, kff
+    return tuple(t[0] for t in lqr_solve_batched(_batch_of_one(lq), dx0[None]))

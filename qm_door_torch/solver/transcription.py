@@ -37,6 +37,7 @@ from ..ocp import constraints as cons
 from ..ocp.problem import (OcpConfig, StageData, StageRow, _ee_error,
                            quadratize_stage, quadratize_terminal_ref)
 from ..ops.spd_solve import spd_solve
+from .projection import arm_lock, project_node_chol, project_node_chol_ft
 
 NX = 30
 NU = 30
@@ -495,8 +496,6 @@ def project_ocp(lq: LqProblem, stage: StageData, U, shift=1e-5, method: str = "c
     (nu = 36, stage.grasp_flags) and ``arm_locked`` take the Cholesky
     projector only. ``stage`` needs ``contact_flags`` (and ``grasp_flags``).
     """
-    from .projection import project_node_chol, project_node_chol_ft
-
     if method not in PROJECTIONS:
         raise ValueError(f"method={method!r}: expected one of {PROJECTIONS}")
     N = U.shape[0]
@@ -554,7 +553,7 @@ def project_ocp_batched(lq: LqProblem, flags, U, shift=1e-5, grasp=None,
     The single SPD solve runs as ONE (B*N, 12, 12) x 49-RHS call to K1.
     flags (B,N,4); U (B,N,nu); grasp (B,N) for the force-tracking problem
     (nu = 36). ``arm_locked`` (nu = 30 only): the quad-only variant, the
-    arm-velocity inputs pinned to zero (see projection.project_node_chol).
+    arm-velocity inputs pinned to zero (projection.arm_lock).
     """
     dtype, dev = lq.g0.dtype, lq.g0.device
     B, N = flags.shape[0], flags.shape[1]
@@ -565,18 +564,9 @@ def project_ocp_batched(lq: LqProblem, flags, U, shift=1e-5, grasp=None,
         raise ValueError("project_ocp_batched: grasp is given exactly for nu = 36")
     active = cons.velocity_row_mask(flags)                          # (B,N,12)
     eye12 = torch.eye(NC_ROWS, dtype=dtype, device=dev)
-    if arm_locked:
-        if nu != NU:
-            raise ValueError("arm_locked requires the 30-input problem")
-        col_mask = torch.cat([torch.ones(12, dtype=dtype, device=dev),
-                              torch.zeros(6, dtype=dtype, device=dev)])
-        Gv = lq.Gv * col_mask
-        p_lock_v = torch.cat([torch.zeros(B, N, 12, dtype=dtype, device=dev),
-                              -U[..., 24:30]], dim=-1)
-        g0 = lq.g0 + fmv(lq.Gv, p_lock_v)
-    else:
-        col_mask = torch.ones(NV_JOINTS, dtype=dtype, device=dev)
-        Gv, p_lock_v, g0 = lq.Gv, None, lq.g0
+    if arm_locked and nu != NU:
+        raise ValueError("arm_locked requires the 30-input problem")
+    col_mask, Gv, p_lock_v, g0 = arm_lock(lq.Gv, lq.g0, U[..., 24:30], arm_locked)
     GvT = Gv.transpose(-1, -2)                                       # (B,N,18,12)
     # M = Gv Gv^T + diag(1 - active): symmetric by construction
     M = fmm(Gv, GvT) + (1.0 - active)[..., :, None] * eye12
