@@ -10,9 +10,11 @@ non-zero, with no result line, when CUDA is unavailable or any phase fails.
 Phases:
   (a) kernels: builds K1 (the SPD solve) and holds the variant its
       dispatch picks (reg16 at the projection shape, reg32 at the gain
-      shape, smem at the off-path WBC Gram shape) against its plain torch
-      version and an f64 plain solve, on SPD inputs of condition ~1e3 (pass:
-      max relative error <= 1e-4); at the two main-path shapes also the
+      shape; at the six shapes of the whole-body cascade at B = 512,
+      (h)'s WBC_K1_SHAPES, smem but reg32 at 30 x 30 x 36) against its
+      plain torch version and an f64 plain solve, on SPD inputs of
+      condition ~1e3 (pass: max relative error <= 1e-4); where a register
+      variant runs, also the
       smem kernel on the same inputs, the two timed in turns (smem, reg,
       reg, smem), each with CUDA events over chained calls (`ms`, as every
       kernel) and in a CUDA graph (`ms_graph`), beside the plain version
@@ -95,10 +97,29 @@ Phases:
       solves within 1e-4 of its f64 plain version, and each solution
       against the same solve on the CPU in f64 within (c)'s bars.
 
+  (h) the whole-body cascade (wbc/wbc.py:hierarchical_wbc_batched, 36
+      variables, and wbc/force.py:hierarchical_wbc_ft_batched, 42, with the
+      wrench) as tools/wbc_bench.py runs them: B = 512 in f32, one cold and
+      20 chained ticks (xs += 1e-9 * cmd[:, :30]) a stack, K1 exactly 101
+      launches a tick, by variant (nominal 97 smem + 4 reg32, ft 101 smem)
+      and by shape (93 Newton, 4 + 4 Gram), ticks/s, host ms and device
+      busy ms a tick, the card's idle share; every K1 call of one tick
+      held to spd_solve_plain in f64 (backward error <= 1e-4 and forward
+      error <= n * cond * 2^-23 on every system: the Newton systems reach
+      condition 1e6-1e10) and counted by shape; K1 at each of the six
+      shapes on the tick's own systems, timed beside its bound, its plain
+      version and torch.linalg; at B = 4 the card's f32 tick and the CPU's
+      f32 and f64 ticks each finite and within the physical bars (level-0
+      EoM residual and swing-foot forces < 1e-2, level-0 inequalities
+      <= 1e-2, torques within effort_limit x (1 + 1e-3)), each f32 tick's
+      level-1 and level-2 residuals within 0.02 and 0.2 of ||b_l|| of the
+      f64 tick's, the card against each CPU tick printed on
+      cmd / max(|cmd|, 1).
+
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
-second time, on (g)'s force-tracking path); the last line is {"ok": true,
-"device": {...}}.
+second time, on (g)'s force-tracking path; K1 at (h)'s six shapes); the
+last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -369,6 +390,7 @@ def reset_launches():
         wrapper.launches = 0
         for variant in getattr(wrapper, "launches_by_variant", {}):
             wrapper.launches_by_variant[variant] = 0
+        getattr(wrapper, "launches_by_shape", {}).clear()
 
 
 def read_launches():
@@ -447,8 +469,11 @@ def phase_kernels(dev):
 
     rng = np.random.default_rng(0)
     shapes = [("projection", BATCH * 67, 12, 49, 1),
-              ("riccati_gain", BATCH, 30, 31, 67),
-              ("wbc_gram_off_path", 512, 58, 58, 0)]
+              ("riccati_gain", BATCH, 30, 31, 67)]
+    # the whole-body cascade's shapes at the WBC bench's batch (h): per tick
+    shapes += [(f"wbc_{stack}_{kind}", WBC_BATCH, n, m, 0)
+               for stack, by_shape in WBC_K1_SHAPES.items()
+               for kind, (n, m, _) in by_shape.items()]
     rows = []
     for label, batch, n, m, per_step in shapes:
         A64, Y64 = spd_batch(rng, batch, n, m)
@@ -466,6 +491,9 @@ def phase_kernels(dev):
         row = dict(shape=label, batch=batch, n=n, m=m, calls_per_step=per_step,
                    variant=variant, rel_err_kernel=rel_k, rel_err_plain=rel_p,
                    max_abs_err=abs_kp)
+        if label.startswith("wbc_"):
+            _, stack, kind = label.split("_", 2)
+            row["calls_per_tick"] = WBC_K1_SHAPES[stack][kind][2]
         # ms: 50 chained calls through the wrapper between two CUDA events, as
         # every kernel is timed (the wrapper's host time bounds it when that
         # exceeds the kernel's); ms_graph: the same 50 calls in a CUDA graph,
@@ -1749,6 +1777,345 @@ def phase_single_solve(dev):
     log("[g] SqpSolver.solve: " + json.dumps(out))
 
 
+# (h) the whole-body cascade, as tools/wbc_bench.py runs it: B robots, one
+# cold and WBC_TICKS chained ticks a stack
+WBC_BATCH = 512
+WBC_TICKS = 20
+WBC_PERIOD = 0.002
+WBC_CROSS_BATCH = 4
+EOM_BAR = 1e-2    # the level-0 EoM residual bar of tests/test_wbc_batched.py:104-130
+TAU_SLACK = 1e-3  # joint torques within effort_limit, relative
+# levels 1, 2 of an f32 tick: |r_l(f32) - r_l(f64)| <= bar * ||b_l|| per robot
+# (hoqp.level_residuals): twice, rounded up, the JAX package's own f32
+# tick's largest deviation from its f64 tick on (h)'s B = 4 inputs on the
+# CPU (backend "xla"): 0.0084 and 0.094
+WBC_LEVEL_BARS = {1: 0.02, 2: 0.2}
+# K1's calls a tick by stack: kind -> (n, m, calls). Every level has
+# constraints, so each runs 30 interior-point Newton solves and the f32
+# polish; each of the two null projectors solves its Gram system twice for
+# each of its two ridges.
+WBC_K1_SHAPES = {
+    "batched": {"newton": (36, 1, 93), "gram0": (30, 36, 4), "gram1": (52, 36, 4)},
+    "ft": {"newton": (42, 1, 93), "gram0": (36, 42, 4), "gram1": (58, 42, 4)},
+}
+
+
+def wbc_problem(dev, dtype, batch, stack):
+    """tools/wbc_bench.py's set-up on the port: AlienGo+Z1 at the nominal
+    pose, seed-0 state perturbations x 0.01, the weight-compensating input
+    for flags [1, 0, 0, 1] (the wrench appended as zeros on "ft", grasp on),
+    a zero last input. Returns tick(xs) -> cmd, and the inputs (model,
+    gains, xs, us, rbds, flags, grasp, state)."""
+    import torch
+
+    from qm_door_torch.config import default_config
+    from qm_door_torch.models import centroidal
+    from qm_door_torch.models.model import aliengo_z1
+    from qm_door_torch.wbc import force, wbc
+
+    model = aliengo_z1(dtype=dtype, device=dev)
+    cfg = default_config()
+    gains = wbc.as_gains(cfg.wbc, dtype, dev)
+    x0 = cfg.initial_state().astype(np.float32)
+    rbd = centroidal.rbd_from_generalized(
+        model, torch.tensor(x0[6:30], dtype=dtype, device=dev),
+        torch.zeros(24, dtype=dtype, device=dev))
+    flags = torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    u = centroidal.weight_compensating_input(model, flags)
+    if stack == "ft":
+        u = torch.cat([u, torch.zeros(6, dtype=dtype, device=dev)])
+    perturb = np.random.default_rng(0).normal(size=(WBC_BATCH, 30))[:batch] * 0.01
+    xs = torch.tensor(x0[None] + perturb, dtype=dtype, device=dev)
+    us, rbds = u.expand(batch, -1).contiguous(), rbd.expand(batch, -1).contiguous()
+    flagss = flags.expand(batch, 4).contiguous()
+    grasp = torch.ones(batch, dtype=dtype, device=dev)
+    state = wbc.WbcState.init(dtype=dtype, nu=u.shape[0], batch=(batch,), device=dev)
+    inputs = (model, gains, xs, us, rbds, flagss, grasp, state)
+    if stack == "ft":
+        return (lambda xs: force.hierarchical_wbc_ft_batched(
+            model, gains, xs, us, rbds, flagss, grasp, state, WBC_PERIOD)[0]), inputs
+    return (lambda xs: wbc.hierarchical_wbc_batched(
+        model, gains, xs, us, rbds, flagss, state, WBC_PERIOD, use_arm_init=False)[0]), inputs
+
+
+def wbc_k1_expect(stack, ticks, batch=WBC_BATCH):
+    """K1's launches in `ticks` ticks of a stack: by variant, and by
+    (batch, n, m)."""
+    from qm_door_torch.ops.spd_solve import VARIANTS, k1_variant
+
+    by_variant, by_shape = dict.fromkeys(VARIANTS, 0), {}
+    for n, m, calls in WBC_K1_SHAPES[stack].values():
+        by_variant[k1_variant(n, m)] += calls * ticks
+        by_shape[(batch, n, m)] = calls * ticks
+    return by_variant, by_shape
+
+
+def check_wbc_k1_calls(calls, label):
+    """Every recorded K1 call of a tick against spd_solve_plain in f64 on the
+    same inputs. The cascade's Newton systems reach condition 1e6-1e10 near
+    convergence, where any f32 solve is off the f64 one by up to
+    n * cond * eps (the plain version in f32 too), so each system is held to
+    its backward error, ||(A + s I) X - Y|| / (||A + s I|| ||X|| + ||Y||) in
+    the max norm, <= K1_REL_TOL, and to the f64 solution within
+    n * cond * 2^-23 relative to its largest entry (cond from A's
+    eigenvalues, which K1's algorithm bounds its forward error by). The
+    forward error on the systems of condition <= 1e3 (phase (a)'s inputs'
+    condition) is reported beside. Systems whose f64 solve is not finite,
+    and those where K1 returns a non-finite solution at
+    n * cond * 2^-24 > 1 (numerically indefinite in f32: the interior point
+    rejects that step), are counted, not held. Returns the worst errors and
+    the calls by (batch, n, m)."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve_plain
+
+    out = dict(backward_max=0.0, forward_over_bound_max=0.0, forward_max_cond_le_1e3=0.0,
+               systems=0, systems_cond_le_1e3=0, systems_not_finite_in_f64=0,
+               systems_not_finite_on_k1_f32_unfactorable=0, calls_by_shape={})
+    for A, Y, shift, X in calls:
+        n = A.shape[-1]
+        eye = torch.eye(n, dtype=torch.float64, device=A.device)
+        A64, Y64, X64 = A.double() + shift * eye, Y.double(), X.double()
+        ref = spd_solve_plain(A.double(), Y64, shift)
+        allfinite = lambda M: torch.isfinite(M).all(dim=-1).all(dim=-1)  # noqa: E731
+        eig = torch.linalg.eigvalsh(A64)  # A's lower triangle, as K1 reads it
+        cond = torch.where(eig[:, 0] > 0, eig[:, -1] / eig[:, 0], float("inf"))
+        # held: finite in f64, and K1 finite unless n * cond * 2^-24 > 1, where
+        # an f32 Cholesky need not complete (Higham, Thm 10.7)
+        held = allfinite(ref) & (allfinite(X64) | (n * cond * 2.0 ** -24 <= 1.0))
+        norm = lambda M: M.abs().amax(dim=(-2, -1))  # noqa: E731
+        backward = norm(A64 @ X64 - Y64) / (A64.abs().sum(-1).amax(-1) * norm(X64) + norm(Y64))
+        forward = norm(X64 - ref) / norm(ref).clamp(min=1e-30)
+        over = forward / (n * cond * 2.0 ** -23)
+        well = held & (cond <= 1e3)
+        bad = held & ~((backward <= K1_REL_TOL) & (over <= 1.0))
+        if bool(bad.any()):
+            raise RuntimeError(f"K1 {label} at {tuple(Y.shape)}: backward error "
+                               f"{backward[held].max().item():.3e} (bar {K1_REL_TOL}), "
+                               f"forward error over n * cond * 2^-23 "
+                               f"{over[held].max().item():.3e} (bar 1)")
+        upd = lambda key, v: out.__setitem__(key, max(out[key], v))  # noqa: E731
+        if held.any():
+            upd("backward_max", backward[held].max().item())
+            upd("forward_over_bound_max", over[held].max().item())
+        if well.any():
+            upd("forward_max_cond_le_1e3", forward[well].max().item())
+        out["systems"] += A.shape[0]
+        out["systems_cond_le_1e3"] += int(well.sum())
+        out["systems_not_finite_in_f64"] += int((~allfinite(ref)).sum())
+        out["systems_not_finite_on_k1_f32_unfactorable"] += int((allfinite(ref) & ~held).sum())
+        key = tuple(Y.shape)
+        out["calls_by_shape"][key] = out["calls_by_shape"].get(key, 0) + 1
+    return out
+
+
+def shape_keys(by_shape):
+    """A count by (batch, n, m) with "BxNxM" keys, to print as JSON."""
+    return {"x".join(map(str, shape)): count for shape, count in by_shape.items()}
+
+
+def wbc_tasks(stack, inputs):
+    """The EoM task and the priority levels of a tick's inputs
+    (wbc_problem's)."""
+    from qm_door_torch.wbc import force, tasks, wbc
+
+    model, gains, xs, us, rbds, flagss, grasp, state = inputs
+    if stack == "ft":
+        data, levels = force.ft_tasks(model, gains, xs, us, rbds, flagss, grasp, state,
+                                      WBC_PERIOD)
+        return force.floating_base_eom_task_ft(data), levels
+    data, levels = wbc.combined_tasks(model, gains, xs, us, rbds, flagss, state, WBC_PERIOD)
+    return tasks.floating_base_eom_task(data), levels
+
+
+def wbc_physical(inputs, eom, levels, cmd):
+    """The physical bars of a tick's cmd, judged on wbc_tasks(inputs): the
+    level-0 EoM residual, the swing feet's forces, the level-0 inequalities
+    (torque limits, friction cone), the joint torques against
+    effort_limit. Returns the worst of each."""
+    model, flagss = inputs[0], inputs[5]
+    n = eom.A.shape[-1]
+    x = cmd[:, :n, None]
+    F = cmd[:, 24:36].reshape(-1, 4, 3)
+    swing = flagss < 0.5
+    return {"eom_residual": ((eom.A @ x)[..., 0] - eom.b).abs().max().item(),
+            "swing_force_max": F[swing].abs().max().item() if bool(swing.any()) else 0.0,
+            "level0_inequality_max": ((levels[0].D @ x)[..., 0] - levels[0].f).max().item(),
+            "tau_over_limit_max": (cmd[:, n:].abs() / model.effort_limit).max().item()}
+
+
+def wbc_cross(dev, stack):
+    """(h) at B = 4: the card's f32 tick beside the port's f32 and f64 ticks
+    on the CPU. Held: each finite and within the physical bars
+    (wbc_physical on the f64 tasks: EoM residual and swing forces < 1e-2,
+    level-0 inequalities <= 1e-2, torques within effort_limit x (1 + 1e-3));
+    each f32 tick's residual at levels 1 and 2 (hoqp.level_residuals on the
+    f64 task data) within WBC_LEVEL_BARS x ||b_l|| of the f64 tick's.
+    Printed: those deviations over ||b_l||, and the card's tick against
+    each CPU tick on cmd / max(|cmd|, 1), by part (accelerations, forces
+    and wrench, torques)."""
+    import torch
+
+    from qm_door_torch.wbc import hoqp
+
+    cpu = torch.device("cpu")
+    cmds, inputs = {}, {}
+    for name, device, dtype in (("gpu_f32", dev, torch.float32), ("cpu_f32", cpu, torch.float32),
+                                ("cpu_f64", cpu, torch.float64)):
+        tick, inputs[name] = wbc_problem(device, dtype, WBC_CROSS_BATCH, stack)
+        cmds[name] = tick(inputs[name][2]).double().cpu()
+    nf = 18 if stack == "ft" else 12
+    parts = {"qdd": slice(0, 24), "forces": slice(24, 24 + nf), "tau": slice(24 + nf, None)}
+    row = {"stack": stack, "batch": WBC_CROSS_BATCH}
+    eom, levels = wbc_tasks(stack, inputs["cpu_f64"])
+    r64 = hoqp.level_residuals(levels, cmds["cpu_f64"])
+    for name, cmd in cmds.items():
+        phys = row[f"physical_{name}"] = wbc_physical(inputs["cpu_f64"], eom, levels, cmd)
+        if not (bool(torch.isfinite(cmd).all()) and phys["eom_residual"] < EOM_BAR
+                and phys["swing_force_max"] < EOM_BAR and phys["level0_inequality_max"] <= EOM_BAR
+                and phys["tau_over_limit_max"] <= 1.0 + TAU_SLACK):
+            raise RuntimeError(f"WBC {stack} {name}: finite "
+                               f"{bool(torch.isfinite(cmd).all())}, physical bars {phys}")
+        if name == "cpu_f64":
+            continue
+        r = hoqp.level_residuals(levels, cmd)
+        dev_b = {level: ((r[:, level] - r64[:, level]).abs()
+                         / torch.linalg.norm(levels[level].b, dim=-1)).max().item()
+                 for level in WBC_LEVEL_BARS}
+        row[f"level_residual_dev_over_b_{name}"] = dev_b
+        if not all(dev_b[level] <= bar for level, bar in WBC_LEVEL_BARS.items()):
+            raise RuntimeError(f"WBC {stack} {name}: level residuals off the f64 tick's by "
+                               f"{dev_b} of ||b_l|| (bars {WBC_LEVEL_BARS})")
+    row["level_residuals_cpu_f64"] = r64[:, 1:].tolist()
+    scale = cmds["cpu_f64"].abs().clamp(min=1.0)
+    for other in ("cpu_f32", "cpu_f64"):
+        row[f"gpu_f32_vs_{other}_scaled"] = {
+            k: ((cmds["gpu_f32"][:, sl] - cmds[other][:, sl]) / scale[:, sl]).abs().max().item()
+            for k, sl in parts.items()}
+    return row
+
+
+def wbc_kernel_rows(stack, calls, launches_by_shape, ticks):
+    """K1 at each of the stack's shapes, on the first recorded call of that
+    shape in a tick (interior-point iteration 0's Newton system, the first
+    projector's thin-ridge Gram system; check_wbc_k1_calls holds every call
+    to f64): its launches in the chained ticks (`launches_by_shape`, the
+    wrapper's count), its difference from the plain f32 solve, ms in
+    chained calls and in a CUDA graph, the plain version's and
+    torch.linalg's ms (cholesky_ex + cholesky_solve), the bound."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
+
+    rows = []
+    for kind, (n, m, _) in WBC_K1_SHAPES[stack].items():
+        A, Y, shift, X = next(c for c in calls if tuple(c[1].shape[1:]) == (n, m))
+        batch = Y.shape[0]
+        eye = torch.eye(n, dtype=A.dtype, device=A.device)
+        plain = spd_solve_plain(A, Y, shift)
+        launches = launches_by_shape[(batch, n, m)]
+        nbytes = 4 * batch * (n * (n + 1) // 2 + 2 * n * m)
+        flops = batch * (n ** 3 / 3.0 + 2.0 * n * n * m)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        row = dict(stack=stack, kind=kind, shape=[batch, n, n, m], variant=k1_variant(n, m),
+                   launches_per_tick=launches / ticks, launches=launches,
+                   max_abs_err=(X - plain).abs().max().item(),
+                   ms=cuda_ms(lambda: spd_solve(A, Y, shift), reps=50),
+                   ms_graph=graph_ms(lambda: spd_solve(A, Y, shift)),
+                   plain_ms=cuda_ms(lambda: spd_solve_plain(A, Y, shift), reps=2, warmup=1),
+                   library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                       Y, torch.linalg.cholesky_ex(A + shift * eye)[0]), reps=20),
+                   bytes=nbytes, flops=flops, bytes_ms=t_bytes, ops_ms=t_ops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("[h] K1 " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def phase_wbc(dev):
+    """(h) the whole-body cascade on the card, both stacks as
+    tools/wbc_bench.py runs them (B = 512, f32): one cold tick and
+    WBC_TICKS chained ticks (xs += 1e-9 * cmd[:, :30]) with the launch
+    counters set to 0 before each and read after (K1 exactly 101 a tick,
+    by variant and by shape as WBC_K1_SHAPES says; every other counter 0);
+    ticks/s, host ms a tick, one tick's device busy ms under torch.profiler
+    and the card's idle share; every K1 call of one tick held to f64
+    (check_wbc_k1_calls) and counted by shape against WBC_K1_SHAPES; K1's
+    rows at the six shapes with the chained ticks' launches by shape; the
+    cross checks at B = 4 (wbc_cross). Returns the K1 rows."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.wbc import hoqp, qp
+
+    rows = []
+    for stack in ("batched", "ft"):
+        per_tick = sum(c for _, _, c in WBC_K1_SHAPES[stack].values())
+        tick, inputs = wbc_problem(dev, torch.float32, WBC_BATCH, stack)
+        xs = inputs[2]
+        counts = {}
+        for name, ticks in (("cold", 1), ("chained", WBC_TICKS)):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if name == "cold":
+                out = tick(xs)
+            else:
+                for _ in range(ticks):
+                    xs = xs + 1e-9 * out[:, :30]
+                    out = tick(xs)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches, by_variant = read_launches(), dict(spd_solve.launches_by_variant)
+            by_shape = dict(spd_solve.launches_by_shape)
+            want = {kid: per_tick * ticks if kid == "K1" else 0 for kid in launches}
+            if (launches, (by_variant, by_shape)) != (want, wbc_k1_expect(stack, ticks)):
+                raise RuntimeError(f"WBC {stack} ({name}, {ticks} ticks): launches {launches}, "
+                                   f"K1 by variant {by_variant}, by shape {by_shape}, expected "
+                                   f"{want}, {wbc_k1_expect(stack, ticks)}")
+            counts[name] = dict(seconds=seconds, launches=launches, k1_by_variant=by_variant,
+                                k1_by_shape=by_shape)
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"WBC {stack}: non-finite cmd after {WBC_TICKS} ticks")
+        elapsed = counts["chained"]["seconds"]
+        tick_ms = 1e3 * elapsed / WBC_TICKS
+        seconds, t0 = {k: v["seconds"] for k, v in counts.items()}, time.time()
+        prof = device_busy(lambda: tick(xs))
+        seconds["profile"], t0 = time.time() - t0, time.time()
+        with k1_calls(qp, hoqp) as calls:
+            tick(xs)
+            torch.cuda.synchronize()
+        k1 = check_wbc_k1_calls(calls, f"in the {stack} tick")
+        if k1["calls_by_shape"] != wbc_k1_expect(stack, 1)[1]:
+            raise RuntimeError(f"WBC {stack}: K1 calls of the recorded tick by shape "
+                               f"{k1['calls_by_shape']}, expected {wbc_k1_expect(stack, 1)[1]}")
+        k1["calls_by_shape"] = shape_keys(k1["calls_by_shape"])
+        seconds["k1_calls"], t0 = time.time() - t0, time.time()
+        rows += wbc_kernel_rows(stack, calls, counts["chained"]["k1_by_shape"], WBC_TICKS)
+        seconds["k1_rows"], t0 = time.time() - t0, time.time()
+        cross = wbc_cross(dev, stack)
+        seconds["cross"] = time.time() - t0
+        result = {
+            "metric": "wbc_ticks_per_s", "value": WBC_BATCH * WBC_TICKS / elapsed,
+            "unit": "ticks/s", "per_tick_us": 1e6 * elapsed / (WBC_BATCH * WBC_TICKS),
+            "batch": WBC_BATCH, "mode": stack, "ticks": WBC_TICKS, "dtype": "float32",
+            "cold_tick_s": counts["cold"]["seconds"], "host_ms_per_tick": tick_ms,
+            "device_busy_ms_per_tick": prof["kernel_ms"], "device_ops_per_tick": prof["device_ops"],
+            "device_idle_share": None if prof["kernel_ms"] is None
+            else 1.0 - prof["kernel_ms"] / tick_ms,
+            "top_device_ms": prof["top_ms"],
+            "k1_launches": counts["chained"]["launches"]["K1"],
+            "k1_launches_per_tick": counts["chained"]["launches"]["K1"] / WBC_TICKS,
+            "k1_by_variant": counts["chained"]["k1_by_variant"],
+            "k1_by_shape": shape_keys(counts["chained"]["k1_by_shape"]),
+            "k1_calls_against_f64": k1, "finite": True, "impl": "torch",
+            "device": torch.cuda.get_device_name(0), "seconds": seconds}
+        log("[h] " + json.dumps(result))
+        log("[h] cross " + json.dumps(cross))
+    return rows
+
+
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "K1-ll": ("spd_solve_ll", "qm_door_torch/csrc/spd_solve.cu",
               "qm_door_tpu/ops/pallas_chol.py:133"),
@@ -1802,6 +2169,7 @@ def main():
                                                           refs)
     phase("f", phase_pairs, {"bm_k1": main_path["run"], **backend_runs})
     _, ft_rows = phase("g", phase_force_tracking, dev, refs)
+    wbc_rows = phase("h", phase_wbc, dev)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -1854,6 +2222,16 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "rel_err": r["rel_err"], "bytes": r["bytes"], "flops": r["flops"]})
+    # (h)'s path, the whole-body cascade: K1 at each of its shapes, with the
+    # launches of (h)'s chained ticks
+    for r in wbc_rows:
+        kernels.append({
+            "name": "spd_solve", "route": "cuda", "source": "qm_door_torch/csrc/spd_solve.cu",
+            "replaces": "qm_door_tpu/ops/pallas_chol.py:103", "variant": r["variant"],
+            "path": f"wbc {r['stack']} {r['kind']}", "shape": r["shape"],
+            **{k: r[k] for k in ("launches", "launches_per_tick", "max_abs_err", "ms",
+                                 "ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "bytes", "flops")}})
     log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     log(card)

@@ -9,6 +9,7 @@ dataclasses.fields(obj)}`` (static metadata passes through as is).
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -18,6 +19,8 @@ from .models.model import RobotModel, from_dict
 from .ocp.problem import OcpConfig, StageData
 from .ocp.reference import TargetTrajectories
 from .solver.transcription import LqProblem, ProjectedLq
+from .wbc.tasks import WbcData
+from .wbc.wbc import WbcGains, WbcState
 
 
 def _tensor_fields(cls, d, dtype, device):
@@ -72,3 +75,22 @@ def projected_lq_from_numpy(d, device=None, dtype=torch.float64) -> ProjectedLq:
     per-scenario path; the fields a form does not use may be None."""
     fields = {f.name: d.get(f.name) for f in dataclasses.fields(ProjectedLq)}
     return ProjectedLq(**_tensor_fields(ProjectedLq, fields, dtype, device))
+
+
+def wbc_gains_from_numpy(d, device=None, dtype=torch.float64) -> WbcGains:
+    """WbcGains from the fields of the JAX WbcGains or of config.WbcSettings."""
+    fields = {k: np.array(v) if isinstance(v, np.ndarray) else v for k, v in d.items()}
+    return WbcGains.from_settings(SimpleNamespace(**fields), dtype=dtype,
+                                  device=resolve_device(device))
+
+
+def wbc_state_from_numpy(d, device=None, dtype=torch.float64) -> WbcState:
+    """WbcState from the JAX WbcState's fields (``input_last``, any leading
+    batch dims)."""
+    return WbcState(**_tensor_fields(WbcState, d, dtype, device))
+
+
+def wbc_data_from_numpy(d, device=None, dtype=torch.float64) -> WbcData:
+    """WbcData from the JAX WbcData's fields (any leading batch dims), so
+    the port's task functions can take the JAX package's data."""
+    return WbcData(**_tensor_fields(WbcData, d, dtype, device))

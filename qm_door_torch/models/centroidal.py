@@ -5,6 +5,9 @@ State x (30): [ h_com/m : vcom(3), L/m(3) ;  base pose: pos(3), zyx(3) ; q_j(18)
 Input u (30): [ contact forces LF,RF,LH,RH (12) ; joint velocities (18) ]
 Force-tracking input u (36): the 30 above, then the EE wrench (6).
 
+rbdState (55): [ zyx euler(3); base pos(3); q_j(18); omega_world(3);
+  v_base world(3); qdot_j(18); ee pos(3); ee quat xyzw(4) ].
+
 Functions take (x, u) with any leading batch dims.
 """
 from __future__ import annotations
@@ -119,3 +122,34 @@ def weight_compensating_input(model: RobotModel, contact_flags, dtype=None):
     return torch.cat([F.reshape(*flags.shape[:-1], 12),
                       torch.zeros(*flags.shape[:-1], 18, dtype=dtype,
                                   device=flags.device)], dim=-1)
+
+
+# --- rbd state conversions ------------------------------------------------
+
+def rbd_to_generalized(rbd):
+    """rbdState (...,55) -> (q (...,24), v (...,24)) in the model chart
+    (WbcBase::updateMeasured)."""
+    zyx = rbd[..., 0:3]
+    q = torch.cat([rbd[..., 3:6], zyx, rbd[..., 6:24]], dim=-1)
+    euler_rates = spatial.world_angvel_to_zyx_rates(zyx, rbd[..., 24:27])
+    v = torch.cat([rbd[..., 27:30], euler_rates, rbd[..., 30:48]], dim=-1)
+    return q, v
+
+
+def centroidal_state_from_rbd(model: RobotModel, rbd):
+    """rbdState (...,55) -> centroidal state x (...,30)
+    (CentroidalModelRbdConversions::computeCentroidalStateFromRbdModel)."""
+    q, v = rbd_to_generalized(rbd)
+    h_norm = spatial.fmv(centroidal_momentum_matrix(model, q), v) / torch.sum(model.body_mass)
+    return torch.cat([h_norm, q], dim=-1)
+
+
+def rbd_from_generalized(model: RobotModel, q, v):
+    """(q, v) -> rbdState (...,55) including the FK'd EE pose
+    (StateEstimateBase::updateArmEE)."""
+    zyx = q[..., 3:6]
+    omega_w = spatial.zyx_rates_to_world_angvel(zyx, v[..., 3:6])
+    R_ee, p_ee = ee_pose(model, q)
+    quat = spatial.rot_to_quat(R_ee)
+    return torch.cat([zyx, q[..., 0:3], q[..., 6:24], omega_w, v[..., 0:3], v[..., 6:24],
+                      p_ee, quat], dim=-1)

@@ -1,11 +1,20 @@
-"""Centroidal quantities of the rigid-body model (port of the CMM part of
-qm_door_tpu/models/dynamics.py).
+"""Rigid-body dynamics quantities (port of qm_door_tpu/models/dynamics.py).
 
-Centroidal momentum matrix (CMM) about the robot com, world axes
-(Orin/Wensing construction, assembled from subtree aggregates):
-    A_lin = sum_i m_i Jc_i,
-    A_ang = sum_i [ I_i^w Jw_i + m_i skew(c_i - c) Jc_i ].
-Functions take q with any leading batch dims.
+- Mass matrix from the kinetic-energy identity
+      M(q) = sum_i [ m_i Jc_i^T Jc_i + Jw_i^T I_i^w Jw_i ]
+  over all 19 lumped bodies (world-aligned com-point Jacobians).
+- Nonlinear effects from the Lagrangian identity
+      h(q, v) = Mdot v - d/dq (1/2 v^T M v) + g(q),
+  with ``torch.func.jvp`` for Mdot and a vjp for the gradients.
+- Centroidal momentum matrix (CMM) about the robot com, world axes
+  (Orin/Wensing construction, assembled from subtree aggregates):
+      A_lin = sum_i m_i Jc_i,
+      A_ang = sum_i [ I_i^w Jw_i + m_i skew(c_i - c) Jc_i ];
+  Adot via ``torch.func.jvp``.
+
+Functions take q (and v) with any leading batch dims; a gradient is taken
+per sample (the samples are independent, so the vjp of the per-sample
+values with a cotangent of ones is each sample's gradient).
 """
 from __future__ import annotations
 
@@ -14,7 +23,7 @@ import torch
 
 from . import spatial
 from .kinematics import fk, joint_world_axes, point_jacobian
-from .model import RobotModel
+from .model import GRAVITY, RobotModel
 
 
 def body_com_kinematics(model: RobotModel, q):
@@ -26,6 +35,57 @@ def body_com_kinematics(model: RobotModel, q):
     Js = [point_jacobian(model, q, b, coms[..., b, :], (axes, origins))
           for b in range(model.nj + 1)]
     return coms, Iw, torch.stack(Js, dim=-3)
+
+
+def _grad(fn, q):
+    """d fn / d q for each sample of a batch of per-sample scalars fn(q) (...)."""
+    out, vjp = torch.func.vjp(fn, q)
+    return vjp(torch.ones_like(out))[0]
+
+
+def mass_matrix(model: RobotModel, q):
+    """(...,24,24) joint-space mass matrix (crba equivalent, exact)."""
+    _, Iw, J = body_com_kinematics(model, q)
+    Jlin, Jang = J[..., :3, :], J[..., 3:, :]
+    m = model.body_mass[:, None, None]
+    M = torch.einsum("...bki,...bkj->...ij", Jlin * m, Jlin) + torch.einsum(
+        "...bki,...bkl,...blj->...ij", Jang, Iw, Jang)
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+def potential_energy(model: RobotModel, q):
+    R, p = fk(model, q)
+    coms = spatial.fmv(R, model.body_com) + p
+    return GRAVITY * torch.sum(model.body_mass * coms[..., 2], dim=-1)
+
+
+def gravity_vector(model: RobotModel, q):
+    return _grad(lambda qq: potential_energy(model, qq), q)
+
+
+def kinetic_energy(model: RobotModel, q, v):
+    return 0.5 * torch.sum(v * spatial.fmv(mass_matrix(model, q), v), dim=-1)
+
+
+def nonlinear_effects(model: RobotModel, q, v):
+    """h(q,v) = C(q,v)v + g(q)  (pinocchio nonLinearEffects equivalent)."""
+    _, Mdot = torch.func.jvp(lambda qq: mass_matrix(model, qq), (q,), (v,))
+    kinetic_grad = _grad(lambda qq: kinetic_energy(model, qq, v), q)
+    return spatial.fmv(Mdot, v) - kinetic_grad + gravity_vector(model, q)
+
+
+def inverse_dynamics(model: RobotModel, q, v, a):
+    """tau = M(q) a + h(q, v): generalized forces for a given acceleration."""
+    return spatial.fmv(mass_matrix(model, q), a) + nonlinear_effects(model, q, v)
+
+
+def forward_dynamics(model: RobotModel, q, v, tau_gen):
+    """a = M^{-1}(tau_gen - h): unconstrained forward dynamics; ``tau_gen`` is
+    the full 24-dim generalized force (contact forces already mapped through
+    J^T by the caller)."""
+    M = mass_matrix(model, q)
+    h = nonlinear_effects(model, q, v)
+    return torch.linalg.solve(M, (tau_gen - h)[..., None])[..., 0]
 
 
 def com_position(model: RobotModel, q):
@@ -130,3 +190,13 @@ def cmm_from_fk(model: RobotModel, q, axes, origins, R, p):
     com = s_tot / M_tot
     L = L_O - spatial.fmm(spatial.skew(com), P)
     return torch.cat([P, L], dim=-2)
+
+
+def centroidal_momentum_matrix_dot(model: RobotModel, q, v):
+    """dA/dt along qdot = v (pinocchio dccrba equivalent)."""
+    _, Adot = torch.func.jvp(lambda qq: centroidal_momentum_matrix(model, qq), (q,), (v,))
+    return Adot
+
+
+def centroidal_momentum(model: RobotModel, q, v):
+    return spatial.fmv(centroidal_momentum_matrix(model, q), v)

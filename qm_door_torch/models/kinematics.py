@@ -123,6 +123,18 @@ def frame_jacobians(model: RobotModel, q, frame_ids=None):
     ], dim=-3)
 
 
+def frame_jacobians_dot(model: RobotModel, q, v, frame_ids=None):
+    """dJ/dt for the requested frames: the jvp of :func:`frame_jacobians`
+    along qdot = v (in this chart qdot == v)."""
+    _, Jdot = torch.func.jvp(lambda qq: frame_jacobians(model, qq, frame_ids), (q,), (v,))
+    return Jdot
+
+
+def frame_velocities(model: RobotModel, q, v, frame_ids=None):
+    """(...,F,6) spatial velocities [linear; angular] in world axes."""
+    return spatial.fmv(frame_jacobians(model, q, frame_ids), v[..., None, :])
+
+
 def contact_positions(model: RobotModel, q):
     """(...,4,3) world positions of the feet in contact order LF, RF, LH, RH."""
     _, pf = frame_placements(model, q)

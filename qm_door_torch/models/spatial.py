@@ -158,6 +158,14 @@ def zyx_rates_to_world_angvel(zyx, zyx_rates):
     return fmv(zyx_rates_to_world_angvel_matrix(zyx), zyx_rates)
 
 
+def world_angacc_from_zyx(zyx, zyx_rates, zyx_rates_dot):
+    """omega_dot_world = E zyxddot + Edot zyxdot, with Edot the jvp of E
+    along the Euler rates (ocs2
+    getGlobalAngularAccelerationFromEulerAnglesZyxDerivatives equivalent)."""
+    E, Edot = torch.func.jvp(zyx_rates_to_world_angvel_matrix, (zyx,), (zyx_rates,))
+    return fmv(E, zyx_rates_dot) + fmv(Edot, zyx_rates)
+
+
 def quat_to_rot(q_xyzw):
     x, y, z, w = q_xyzw[..., 0], q_xyzw[..., 1], q_xyzw[..., 2], q_xyzw[..., 3]
     xx, yy, zz = x * x, y * y, z * z
@@ -231,6 +239,52 @@ def quat_slerp(qa, qb, t):
     wb = torch.where(small, t, torch.sin(t * theta) / safe)
     out = wa * qa + wb * qb
     return out / torch.linalg.norm(out, dim=-1, keepdim=True)
+
+
+def quat_mul(a, b):
+    """Hamilton product (xyzw)."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ], dim=-1)
+
+
+def quat_conj(q):
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def quat_log3(q_xyzw):
+    """SO(3) log map of a quaternion -> rotation vector (angle*axis)."""
+    v = q_xyzw[..., :3]
+    w = q_xyzw[..., 3]
+    nv = torch.linalg.norm(v, dim=-1)
+    angle = 2.0 * torch.atan2(nv, torch.abs(w))
+    one = torch.ones_like(w)
+    sign = torch.where(w < 0, -one, one)
+    small = nv < 1e-9
+    scale = torch.where(small, 2.0 * sign,
+                        sign * angle / torch.where(small, torch.ones_like(nv), nv))
+    return v * scale[..., None]
+
+
+def log3(R):
+    """SO(3) log map of a rotation matrix -> rotation vector."""
+    return quat_log3(rot_to_quat(R))
+
+
+def rotation_error_world(R_ref, R_meas):
+    """World-frame rotation error log(R_ref @ R_meas^T) as a rotation vector
+    (ocs2 rotationErrorInWorld, the WBC's base and EE angular tasks)."""
+    return log3(fmm(R_ref, R_meas.transpose(-1, -2)))
+
+
+def quat_distance(qa, qb):
+    """Rotation-vector distance between two quaternions."""
+    return quat_log3(quat_mul(qb, quat_conj(qa)))
 
 
 def quat_error_ocs2(q, q_ref):

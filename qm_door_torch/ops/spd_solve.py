@@ -26,8 +26,8 @@ n <= 64) and raises for anything it cannot take; nothing is chosen because
 a build or a launch failed. CPU tensors run :func:`spd_solve_plain`, the
 same algorithm as batched torch ops. :func:`spd_solve_ll` (K1-ll) is the
 same solve on lanes-last arrays, through the same dispatch with other
-strides. Each wrapper counts its launches in ``.launches`` and, by variant,
-in ``.launches_by_variant``.
+strides. Each wrapper counts its launches in ``.launches``, by variant in
+``.launches_by_variant`` and by (batch, n, m) in ``.launches_by_shape``.
 """
 from __future__ import annotations
 
@@ -130,6 +130,8 @@ def _launch(wrapper, variant, A, Y, X, batch, n, m, shift, strides):
         check_launch(name, err, what)
     wrapper.launches += 1
     wrapper.launches_by_variant[variant] += 1
+    shape = (batch, n, m)
+    wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
 
 
 def _variant_for(name, n, m, forced):
@@ -149,10 +151,11 @@ def spd_solve(A, Y, shift: float = 0.0, _variant=None):
 
     A: (B, n, n); Y: (B, n, m), both contiguous, same device and dtype.
     CUDA tensors go to the K1 variant :func:`k1_variant` picks (float32,
-    n <= 64), counted in ``spd_solve.launches`` and
-    ``spd_solve.launches_by_variant``; CPU tensors go to
-    :func:`spd_solve_plain`. ``_variant`` forces a variant (to time one
-    beside another on the card); the solver never passes it.
+    n <= 64), counted in ``spd_solve.launches``,
+    ``spd_solve.launches_by_variant`` and ``spd_solve.launches_by_shape``;
+    CPU tensors go to :func:`spd_solve_plain`. ``_variant`` forces a
+    variant (to time one beside another on the card); the solver never
+    passes it.
     """
     if A.dim() != 3 or Y.dim() != 3 or A.shape[1] != A.shape[2] \
             or Y.shape[:2] != A.shape[:2]:
@@ -173,6 +176,7 @@ def spd_solve(A, Y, shift: float = 0.0, _variant=None):
 
 spd_solve.launches = 0
 spd_solve.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+spd_solve.launches_by_shape = {}
 
 
 def spd_solve_ll(At, Yt, shift: float = 0.0):
@@ -181,8 +185,9 @@ def spd_solve_ll(At, Yt, shift: float = 0.0):
 
     CUDA tensors (contiguous float32, n <= 64, any B) enter the variant
     :func:`k1_variant` picks with batch stride 1 and element stride B,
-    counted in ``spd_solve_ll.launches`` and ``.launches_by_variant``; CPU
-    tensors take :func:`spd_solve_plain` on the batch-major views.
+    counted in ``spd_solve_ll.launches``, ``.launches_by_variant`` and
+    ``.launches_by_shape``; CPU tensors take :func:`spd_solve_plain` on the
+    batch-major views.
     """
     if At.dim() != 3 or Yt.dim() != 3 or At.shape[0] != At.shape[1] \
             or Yt.shape[0] != At.shape[0] or Yt.shape[2] != At.shape[2]:
@@ -202,3 +207,4 @@ def spd_solve_ll(At, Yt, shift: float = 0.0):
 
 spd_solve_ll.launches = 0
 spd_solve_ll.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+spd_solve_ll.launches_by_shape = {}

@@ -45,7 +45,9 @@ def test_importing_every_port_module_loads_no_jax():
     import json
 
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "qm_door_torch.solver.batched_sqp" in loaded
+    for name in ("qm_door_torch.solver.batched_sqp", "qm_door_torch.wbc.wbc",
+                 "qm_door_torch.wbc.force"):
+        assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -41,6 +41,7 @@ def test_cpu_tensors_count_no_variant():
     total = (k1.spd_solve.launches, k1.spd_solve_ll.launches)
     by_variant = (dict(k1.spd_solve.launches_by_variant),
                   dict(k1.spd_solve_ll.launches_by_variant))
+    by_shape = (dict(k1.spd_solve.launches_by_shape), dict(k1.spd_solve_ll.launches_by_shape))
     for B, n, m in ((7, 12, 49), (3, 30, 31), (2, 58, 58)):
         A, Y = (torch.as_tensor(t) for t in _spd(rng, B, n, m))
         k1.spd_solve(A, Y)
@@ -48,6 +49,7 @@ def test_cpu_tensors_count_no_variant():
         k1.spd_solve_ll(A.permute(1, 2, 0).contiguous(), Y.permute(1, 2, 0).contiguous())
     assert (k1.spd_solve.launches, k1.spd_solve_ll.launches) == total
     assert (k1.spd_solve.launches_by_variant, k1.spd_solve_ll.launches_by_variant) == by_variant
+    assert (k1.spd_solve.launches_by_shape, k1.spd_solve_ll.launches_by_shape) == by_shape
     for counts in by_variant:
         assert set(counts) == set(k1.VARIANTS)
         assert all(type(v) is int and v == 0 for v in counts.values())
