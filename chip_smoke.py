@@ -115,11 +115,29 @@ Phases:
       level-1 and level-2 residuals within 0.02 and 0.2 of ||b_l|| of the
       f64 tick's, the card against each CPU tick printed on
       cmd / max(|cmd|, 1).
+  (i) the batched closed loop (sim/batched_rollout.py:BatchedClosedLoop)
+      as tools/rollout_bench.py runs it: B = 1024 scenarios, f32, bm_k1,
+      default_config() (lin_chunk = 0), the trot from t = 0, N = 67,
+      SimConfig(), 10 physics steps a cycle with a WBC tick every 2,
+      seed-0 perturbations of q0 x 0.01, a 0-60 N payload every cycle and a
+      0-60 N push in cycles 5-7; one untimed cycle, then 10 timed cycles
+      from the same start: closed_loop_sim_s_per_wall_s, mpc_solves_per_s,
+      the wall time, host ms a cycle by part (solve, WBC ticks, physics
+      steps; one more cycle, each part ended by a synchronize), device busy
+      ms and the card's idle share of one cycle, K1 exactly 573 launches a
+      cycle (by variant: reg16 1, reg32 87, smem 485; by shape), the K1
+      calls of one cycle's SQP step and first WBC tick held to f64 (as
+      (h)), the alive count; held: every
+      state finite, all 1024 alive, every base within 5 cm of the stance
+      height; K1 at the loop's five shapes timed beside its bound, its
+      plain version and torch.linalg; at B = 4 and 2 cycles the card's f32
+      loop against the CPU's f64 loop on the base pose and the joint
+      positions after each cycle (LOOP_CROSS_BARS).
 
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
-second time, on (g)'s force-tracking path; K1 at (h)'s six shapes); the
-last line is {"ok": true, "device": {...}}.
+second time, on (g)'s force-tracking path; K1 at (h)'s six shapes; K1 on
+(i)'s path, a cycle's work); the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -219,7 +237,9 @@ def device_busy(fn):
     five kernels with the most device time. kernel_ms is None where the
     profiler saw no device activity (no CUPTI). Only the device is traced:
     tracing the host's operators too made each step's profile tens of
-    seconds longer and changed none of these numbers."""
+    seconds longer and changed none of these numbers. The raw kineto events
+    are read, not prof.events(): building those took ~70 s for one
+    closed-loop cycle's ~330k device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -228,17 +248,17 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_us, end = 0.0, float("-inf")
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            spans.append((e.start_ns(), e.end_ns()))
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    busy_ns, end = 0, float("-inf")
     for start, stop in sorted(spans):
         if stop > end:
-            busy_us += stop - max(start, end)
+            busy_ns += stop - max(start, end)
             end = stop
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"kernel_ms": busy_us / 1e3 if spans else None, "device_ops": len(spans),
+    return {"kernel_ms": busy_ns / 1e6 if spans else None, "device_ops": len(spans),
             "top_ms": {name[:80]: ms for name, ms in top}}
 
 
@@ -1878,7 +1898,12 @@ def check_wbc_k1_calls(calls, label):
         A64, Y64, X64 = A.double() + shift * eye, Y.double(), X.double()
         ref = spd_solve_plain(A.double(), Y64, shift)
         allfinite = lambda M: torch.isfinite(M).all(dim=-1).all(dim=-1)  # noqa: E731
-        eig = torch.linalg.eigvalsh(A64)  # A's lower triangle, as K1 reads it
+        # A's lower triangle, as K1 reads it, on the CPU (cuSOLVER's batched
+        # eigensolver refused the closed loop's batches); a system with a
+        # non-finite entry has no condition (inf)
+        finite_A = torch.isfinite(A64).all(dim=-1).all(dim=-1)
+        eig = torch.full(A64.shape[:-1], float("nan"), dtype=torch.float64, device=A.device)
+        eig[finite_A] = torch.linalg.eigvalsh(A64[finite_A].cpu()).to(A.device)
         cond = torch.where(eig[:, 0] > 0, eig[:, -1] / eig[:, 0], float("inf"))
         # held: finite in f64, and K1 finite unless n * cond * 2^-24 > 1, where
         # an f32 Cholesky need not complete (Higham, Thm 10.7)
@@ -2116,6 +2141,319 @@ def phase_wbc(dev):
     return rows
 
 
+# (i) the batched closed loop, as tools/rollout_bench.py runs it: B scenarios
+# x LOOP_CYCLES MPC cycles of LOOP_MPC_DECIM physics steps (1 kHz), a WBC
+# tick every LOOP_CONTROL_DECIM of them
+LOOP_BATCH = 1024
+LOOP_CYCLES = 10
+LOOP_MPC_DECIM = 10
+LOOP_CONTROL_DECIM = 2
+LOOP_PAYLOAD_N = 60.0  # payload 0-60 N on -z every cycle
+LOOP_PUSH_N = 60.0     # a 0-60 N lateral push at a random heading
+LOOP_PUSH_CYCLES = (5, 8)  # ... in cycles 5-7
+LOOP_HEIGHT_BAND = 0.05    # m: every base within 5 cm of the nominal stance height
+LOOP_CROSS_BATCH = 4
+LOOP_CROSS_CYCLES = 2
+# the card's f32 loop against the CPU's f64 loop at B = 4 after each of 2
+# cycles, max abs over scenarios and coordinates (m and rad): twice, rounded
+# up, the JAX package's own f32 loop's largest deviation from its f64 loop
+# on the same inputs on the CPU (python3 tests/torch_parity.py loop-bars:
+# base pose 8.5e-6 / 1.66e-4, joints 1.79e-4 / 4.94e-3 after cycles 1 / 2)
+LOOP_CROSS_BARS = {"base_pose": 4e-4, "joint_q": 1e-2}
+
+
+def loop_inputs(q0, batch, cycles):
+    """tools/rollout_bench.py's domain randomization from seed 0, for the
+    first `batch` of LOOP_BATCH scenarios: q0 (24,) (the nominal pose, feet
+    on the ground) perturbed x 0.01, and the wrenches (cycles, batch, 6):
+    the payload on -z every cycle, the push in LOOP_PUSH_CYCLES (clipped to
+    the run). numpy float64."""
+    rng = np.random.default_rng(0)
+    q0b = np.asarray(q0)[None] + rng.normal(size=(LOOP_BATCH, 24)) * 0.01
+    wr = np.zeros((cycles, LOOP_BATCH, 6))
+    wr[:, :, 2] -= rng.uniform(0.0, LOOP_PAYLOAD_N, size=LOOP_BATCH)[None, :]
+    heading = rng.uniform(0.0, 2 * np.pi, size=LOOP_BATCH)
+    push = rng.uniform(0.0, LOOP_PUSH_N, size=LOOP_BATCH)
+    lo, hi = min(LOOP_PUSH_CYCLES[0], cycles - 1), min(LOOP_PUSH_CYCLES[1], cycles)
+    wr[lo:hi, :, 0] += (push * np.cos(heading))[None, :]
+    wr[lo:hi, :, 1] += (push * np.sin(heading))[None, :]
+    return q0b[:batch], wr[:, :batch]
+
+
+def loop_problem(dev, dtype, batch, cycles):
+    """(i)'s set-up on the port: AlienGo+Z1, default_config() with
+    lin_chunk = 0, the trot from t = 0, N = 67; SimConfig() (flat, no
+    walls); BatchedClosedLoop on bm_k1; the stages of `cycles` cycles, the
+    initial carry and the wrenches of loop_inputs. Returns (loop, stages,
+    carry, wrenches, z_nominal)."""
+    import torch
+
+    from qm_door_torch.config import default_config
+    from qm_door_torch.models import centroidal, kinematics, spatial
+    from qm_door_torch.models.model import aliengo_z1
+    from qm_door_torch.ocp.gait import GAIT_LIBRARY, GaitSchedule
+    from qm_door_torch.ocp.problem import make_ocp_config
+    from qm_door_torch.ocp.reference import TargetTrajectories
+    from qm_door_torch.sim.batched_rollout import BatchedClosedLoop, cycle_stage, stack_stages
+    from qm_door_torch.sim.sim import SimConfig
+    from qm_door_torch.solver.sqp import SqpSolver
+
+    cfg = default_config()
+    cfg.sqp.lin_chunk = 0
+    model = aliengo_z1(dtype=dtype, device=dev)
+    solver = SqpSolver(model, make_ocp_config(model, cfg), cfg)
+    x0 = torch.tensor(cfg.initial_state(), dtype=dtype, device=dev)
+    R_ee, p_ee = kinematics.ee_pose(model, x0[6:30])
+    tstate = torch.cat([x0, p_ee, spatial.rot_to_quat(R_ee)])
+    targets = TargetTrajectories.create(
+        torch.tensor([0.0, 1e5], dtype=dtype, device=dev), torch.stack([tstate, tstate]),
+        torch.zeros((2, 30), dtype=dtype, device=dev))
+    sched = GaitSchedule()
+    sched.insert_template(GAIT_LIBRARY["trot"], 0.0, 60.0)
+    sim_cfg = SimConfig()
+    loop = BatchedClosedLoop(model, cfg, solver, sim_cfg, LOOP_CONTROL_DECIM, LOOP_MPC_DECIM)
+    stages = stack_stages(model, cfg, sched, targets, 0.0, cycles,
+                          LOOP_MPC_DECIM * sim_cfg.dt, dtype)
+    # the nominal pose with its feet on the ground, in f64 on the CPU for
+    # every run alike
+    m64 = aliengo_z1(dtype=torch.float64, device="cpu")
+    q0 = centroidal.pinocchio_q(torch.tensor(cfg.initial_state(), dtype=torch.float64)).clone()
+    q0[2] -= kinematics.contact_positions(m64, q0)[:, 2].mean()
+    q0b, wr = loop_inputs(q0.numpy(), batch, cycles)
+    carry = loop.init_carry(cycle_stage(stages, 0), torch.tensor(q0b, dtype=dtype, device=dev))
+    return loop, stages, carry, torch.tensor(wr, dtype=dtype, device=dev), float(q0[2])
+
+
+def loop_k1_expect(cycles, batch=LOOP_BATCH):
+    """K1's launches in `cycles` cycles on bm_k1: a cycle's SQP step (1
+    projection solve over B x 67 nodes, 67 gain solves) and its
+    LOOP_MPC_DECIM / LOOP_CONTROL_DECIM WBC ticks (WBC_K1_SHAPES's nominal
+    stack). Returns (total, by variant, by (batch, n, m))."""
+    from qm_door_torch.ops.spd_solve import VARIANTS, k1_variant
+
+    ticks = LOOP_MPC_DECIM // LOOP_CONTROL_DECIM
+    shapes = [(batch * 67, 12, 49, 1), (batch, 30, 31, 67)]
+    shapes += [(batch, n, m, calls * ticks) for n, m, calls in WBC_K1_SHAPES["batched"].values()]
+    by_variant, by_shape = dict.fromkeys(VARIANTS, 0), {}
+    for b, n, m, calls in shapes:
+        by_variant[k1_variant(n, m)] += calls * cycles
+        by_shape[(b, n, m)] = calls * cycles
+    return sum(by_shape.values()), by_variant, by_shape
+
+
+def loop_states(loop, stages, carry, wrenches, cycles):
+    """Run `cycles` cycles one at a time; the base pose and joint positions
+    after each, (cycles, B, 6) and (cycles, B, 18), in f64 on the CPU, and
+    the final carry."""
+    import torch
+
+    from qm_door_torch.sim.batched_rollout import cycle_stage
+
+    base, joints = [], []
+    for i in range(cycles):
+        carry, _ = loop.run(cycle_stage(stages, slice(i, i + 1)), carry, wrenches[i:i + 1])
+        q = carry.sim.q.double().cpu()
+        base.append(q[:, 0:6])
+        joints.append(q[:, 6:24])
+    return torch.stack(base), torch.stack(joints), carry
+
+
+def loop_cross(dev):
+    """(i) at B = 4 and LOOP_CROSS_CYCLES cycles: the card's f32 loop against
+    the port's f64 loop on the CPU, on the base pose and the joint positions
+    after each cycle (LOOP_CROSS_BARS, max abs)."""
+    import torch
+
+    out = {}
+    for name, device, dtype in (("gpu_f32", dev, torch.float32),
+                                ("cpu_f64", torch.device("cpu"), torch.float64)):
+        loop, stages, carry, wr, _ = loop_problem(device, dtype, LOOP_CROSS_BATCH,
+                                                  LOOP_CROSS_CYCLES)
+        base, joints, carry = loop_states(loop, stages, carry, wr, LOOP_CROSS_CYCLES)
+        out[name] = dict(base_pose=base, joint_q=joints, alive=carry.alive.cpu().tolist())
+    row = {"batch": LOOP_CROSS_BATCH, "cycles": LOOP_CROSS_CYCLES, "bars": LOOP_CROSS_BARS,
+           "alive": {k: v["alive"] for k, v in out.items()}}
+    for key in ("base_pose", "joint_q"):
+        dev_by_cycle = (out["gpu_f32"][key] - out["cpu_f64"][key]).abs().amax(dim=(1, 2))
+        row[f"{key}_dev_by_cycle"] = dev_by_cycle.tolist()
+    log("[i] cross " + json.dumps(row))
+    ok = all(all(v["alive"]) for v in out.values()) and all(
+        max(row[f"{key}_dev_by_cycle"]) <= bar for key, bar in LOOP_CROSS_BARS.items())
+    if not ok:
+        raise RuntimeError(f"closed loop cross precision: {row}")
+    return row
+
+
+def loop_kernel_row(calls, launches_by_shape, cycles):
+    """K1 on (i)'s path: each of its five shapes timed on the first recorded
+    call of that shape in a cycle (ms in chained calls, the plain version's
+    and torch.linalg's ms, the bound), summed over a cycle's calls like (a)'s
+    main-path row; the timed cycles' launches by shape."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
+
+    per_cycle = loop_k1_expect(1)[2]
+    shapes, sums = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                            bound_ms=0.0)
+    for (batch, n, m), calls_a_cycle in per_cycle.items():
+        A, Y, shift, X = next(c for c in calls if tuple(c[1].shape) == (batch, n, m))
+        eye = torch.eye(n, dtype=A.dtype, device=A.device)
+        nbytes = 4 * batch * (n * (n + 1) // 2 + 2 * n * m)
+        flops = batch * (n ** 3 / 3.0 + 2.0 * n * n * m)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        row = dict(shape=[batch, n, n, m], variant=k1_variant(n, m),
+                   calls_per_cycle=calls_a_cycle,
+                   launches=launches_by_shape[(batch, n, m)],
+                   max_abs_err=(X - spd_solve_plain(A, Y, shift)).abs().max().item(),
+                   ms=cuda_ms(lambda: spd_solve(A, Y, shift), reps=50),
+                   plain_ms=cuda_ms(lambda: spd_solve_plain(A, Y, shift), reps=2, warmup=1),
+                   library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                       Y, torch.linalg.cholesky_ex(A + shift * eye)[0]), reps=20),
+                   bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        for key in sums:
+            sums[key] += row[key] * calls_a_cycle
+        log("[i] K1 " + json.dumps(row))
+        shapes.append(row)
+    return {
+        "name": "spd_solve", "route": "cuda", "source": "qm_door_torch/csrc/spd_solve.cu",
+        "replaces": "qm_door_tpu/ops/pallas_chol.py:103", "path": "closed loop bm_k1",
+        "launches": sum(launches_by_shape.values()),
+        "launches_per_cycle": sum(launches_by_shape.values()) / cycles,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        # one cycle's K1 work (the SQP step's 68 solves and 5 ticks' 505), in
+        # chained-call events
+        **{k: sums[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
+        "shapes": shapes}
+
+
+def phase_closed_loop(dev):
+    """(i) the batched closed loop on the card, tools/rollout_bench.py's
+    configuration: B = LOOP_BATCH, f32, bm_k1, one untimed cycle, then
+    LOOP_CYCLES timed cycles from the same start with the launch counters
+    set to 0 just before and read just after (K1 exactly loop_k1_expect's,
+    by variant and by shape; every other counter 0); closed-loop sim-s per
+    wall-s, MPC solves/s, the wall time; one more cycle with host timers
+    around the solve, the WBC ticks and the physics steps (each ended by a
+    synchronize) and one under torch.profiler (device busy ms, the card's
+    idle share); every K1 call of one cycle counted by shape, those of its
+    SQP step and first WBC tick held to f64 (check_wbc_k1_calls); every
+    state finite, every scenario alive, every
+    base height within LOOP_HEIGHT_BAND of the nominal stance; the cross
+    check at B = 4 (loop_cross). Returns K1's row on this path."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.sim.batched_rollout import cycle_stage
+    from qm_door_torch.solver import riccati, transcription
+    from qm_door_torch.wbc import hoqp, qp
+
+    seconds, t0 = {}, time.time()
+    loop, stages, carry0, wr, z_nominal = loop_problem(dev, torch.float32, LOOP_BATCH,
+                                                       LOOP_CYCLES)
+    seconds["setup"], t0 = time.time() - t0, time.time()
+    loop.run(cycle_stage(stages, slice(0, 1)), carry0, wr[:1])  # warms the allocator, kernels
+    torch.cuda.synchronize()
+    seconds["warm_cycle"], t0 = time.time() - t0, time.time()
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t_run = time.time()
+    carry, log_ = loop.run(stages, carry0, wr)
+    torch.cuda.synchronize()
+    wall = time.time() - t_run
+    launches, by_variant = read_launches(), dict(spd_solve.launches_by_variant)
+    by_shape = dict(spd_solve.launches_by_shape)
+    total, want_variant, want_shape = loop_k1_expect(LOOP_CYCLES)
+    want = {kid: total if kid == "K1" else 0 for kid in launches}
+    if (launches, by_variant, by_shape) != (want, want_variant, want_shape):
+        raise RuntimeError(f"closed loop ({LOOP_CYCLES} cycles): launches {launches}, K1 by "
+                           f"variant {by_variant}, by shape {by_shape}; expected {want}, "
+                           f"{want_variant}, {want_shape}")
+    seconds["timed_cycles"], t0 = time.time() - t0, time.time()
+    log(f"[i] {LOOP_CYCLES} cycles in {wall:.2f} s, K1 {by_variant} by variant, as expected")
+
+    q = carry.sim.q
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        q, carry.sim.v, carry.X, carry.U, carry.command, log_.base_pose, log_.mpc_cost))
+    alive = int(carry.alive.sum())
+    height_dev = (log_.base_pose[:, :, 2] - z_nominal).abs().max().item()
+
+    # host ms a cycle by part, each call ended by a synchronize
+    split = {"solve": 0.0, "wbc_ticks": 0.0, "physics_steps": 0.0}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[key] += 1e3 * (time.time() - t)
+            return out
+        return call
+
+    last = cycle_stage(stages, slice(LOOP_CYCLES - 1, LOOP_CYCLES))
+    loop._solve = timed(loop._solve, "solve")
+    loop._control_tick = timed(loop._control_tick, "wbc_ticks")
+    loop._physics_step = timed(loop._physics_step, "physics_steps")
+    torch.cuda.synchronize()
+    t = time.time()
+    loop.run(last, carry, wr[-1:])
+    torch.cuda.synchronize()
+    split["cycle"] = 1e3 * (time.time() - t)
+    split["other"] = split["cycle"] - sum(v for k, v in split.items() if k != "cycle")
+    del loop._solve, loop._control_tick, loop._physics_step
+    seconds["split_cycle"], t0 = time.time() - t0, time.time()
+    prof = device_busy(lambda: loop.run(last, carry, wr[-1:]))
+    seconds["profile"], t0 = time.time() - t0, time.time()
+    with k1_calls(transcription, riccati, qp, hoqp) as calls:
+        loop.run(last, carry, wr[-1:])
+        torch.cuda.synchronize()
+    recorded = {}
+    for _, Y, _, _ in calls:
+        recorded[tuple(Y.shape)] = recorded.get(tuple(Y.shape), 0) + 1
+    if recorded != loop_k1_expect(1)[2]:
+        raise RuntimeError(f"closed loop: K1 calls of the recorded cycle by shape {recorded}, "
+                           f"expected {loop_k1_expect(1)[2]}")
+    # the SQP step's 68 calls and the first WBC tick's 101 held to f64 (the
+    # other four ticks' calls are of the same shapes; all 573 took ~50 s)
+    k1 = check_wbc_k1_calls(calls[:68 + 101], "in a closed-loop cycle's solve and first tick")
+    k1["calls_by_shape"] = shape_keys(k1["calls_by_shape"])
+    seconds["k1_calls"], t0 = time.time() - t0, time.time()
+    row = loop_kernel_row(calls, by_shape, LOOP_CYCLES)
+    del calls
+    seconds["k1_row"], t0 = time.time() - t0, time.time()
+    cross = loop_cross(dev)
+    seconds["cross"] = time.time() - t0
+
+    cycle_ms = 1e3 * wall / LOOP_CYCLES
+    sim_s = LOOP_BATCH * LOOP_CYCLES * LOOP_MPC_DECIM * loop.sim_cfg.dt
+    result = {
+        "metric": "closed_loop_sim_s_per_wall_s", "value": sim_s / wall, "unit": "sim-s/s",
+        "mpc_solves_per_s": LOOP_BATCH * LOOP_CYCLES / wall, "wall_s": wall,
+        "batch": LOOP_BATCH, "cycles": LOOP_CYCLES, "mpc_decim": LOOP_MPC_DECIM,
+        "control_decim": LOOP_CONTROL_DECIM, "backend": "bm_k1", "dtype": "float32",
+        "host_ms_per_cycle": cycle_ms, "host_ms_by_part_one_cycle": split,
+        "device_busy_ms_per_cycle": prof["kernel_ms"], "device_ops_per_cycle": prof["device_ops"],
+        "device_idle_share": None if prof["kernel_ms"] is None
+        else 1.0 - prof["kernel_ms"] / cycle_ms,
+        "top_device_ms": prof["top_ms"],
+        "k1_launches": launches["K1"], "k1_launches_per_cycle": launches["K1"] / LOOP_CYCLES,
+        "k1_by_variant": by_variant, "k1_by_shape": shape_keys(by_shape),
+        "k1_calls_against_f64": k1, "alive": alive, "finite": finite,
+        "base_height_max_dev_m": height_dev, "height_band_m": LOOP_HEIGHT_BAND,
+        "mpc_viol_mean_by_cycle": log_.mpc_viol.double().mean(dim=1).tolist(),
+        "impl": "torch", "device": torch.cuda.get_device_name(0), "seconds": seconds}
+    log("[i] " + json.dumps(result))
+    if not (finite and alive == LOOP_BATCH and height_dev <= LOOP_HEIGHT_BAND):
+        raise RuntimeError(f"closed loop: finite {finite}, alive {alive}/{LOOP_BATCH}, base "
+                           f"height off the nominal by up to {height_dev:.4f} m "
+                           f"(band {LOOP_HEIGHT_BAND})")
+    return row, result, cross
+
+
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "K1-ll": ("spd_solve_ll", "qm_door_torch/csrc/spd_solve.cu",
               "qm_door_tpu/ops/pallas_chol.py:133"),
@@ -2170,6 +2508,7 @@ def main():
     phase("f", phase_pairs, {"bm_k1": main_path["run"], **backend_runs})
     _, ft_rows = phase("g", phase_force_tracking, dev, refs)
     wbc_rows = phase("h", phase_wbc, dev)
+    loop_row, _, _ = phase("i", phase_closed_loop, dev)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -2232,6 +2571,9 @@ def main():
             **{k: r[k] for k in ("launches", "launches_per_tick", "max_abs_err", "ms",
                                  "ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                  "bytes", "flops")}})
+    # (i)'s path, the batched closed loop: K1 a cycle, with the launches of
+    # (i)'s timed cycles
+    kernels.append(loop_row)
     log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     log(card)

@@ -18,6 +18,9 @@ from .device import resolve_device
 from .models.model import RobotModel, from_dict
 from .ocp.problem import OcpConfig, StageData
 from .ocp.reference import TargetTrajectories
+from .sim.batched_rollout import RolloutCarry
+from .sim.sim import SimConfig, SimState
+from .sim.world import WorldMesh
 from .solver.transcription import LqProblem, ProjectedLq
 from .wbc.tasks import WbcData
 from .wbc.wbc import WbcGains, WbcState
@@ -94,3 +97,37 @@ def wbc_data_from_numpy(d, device=None, dtype=torch.float64) -> WbcData:
     """WbcData from the JAX WbcData's fields (any leading batch dims), so
     the port's task functions can take the JAX package's data."""
     return WbcData(**_tensor_fields(WbcData, d, dtype, device))
+
+
+def sim_config_from_numpy(d) -> SimConfig:
+    """SimConfig from the JAX SimConfig (a NamedTuple, passed through by
+    field) or a mapping of its fields."""
+    return SimConfig(**(d._asdict() if hasattr(d, "_asdict") else d))
+
+
+def sim_state_from_numpy(d, device=None, dtype=torch.float64) -> SimState:
+    """SimState from a JAX SimState batch's fields (leading B on each); the
+    ring index becomes int64."""
+    dev = resolve_device(device)
+    out = _tensor_fields(SimState, d, dtype, device)
+    out["buf_head"] = torch.tensor(np.asarray(d["buf_head"]), dtype=torch.int64, device=dev)
+    return SimState(**out)
+
+
+def rollout_carry_from_numpy(d, device=None, dtype=torch.float64) -> RolloutCarry:
+    """RolloutCarry from a JAX RolloutCarry's fields, its ``sim`` a mapping
+    of the SimState's fields; ``alive`` stays bool."""
+    dev = resolve_device(device)
+    out = _tensor_fields(RolloutCarry, {k: v for k, v in d.items() if k != "sim"}, dtype,
+                         device)
+    out["alive"] = torch.tensor(np.asarray(d["alive"]), dtype=torch.bool, device=dev)
+    return RolloutCarry(sim=sim_state_from_numpy(d["sim"], device, dtype), **out)
+
+
+def world_mesh_from_numpy(d, device=None, dtype=torch.float64) -> WorldMesh:
+    """WorldMesh from the JAX WorldMesh (a NamedTuple) or a mapping of its
+    fields."""
+    d = d._asdict() if hasattr(d, "_asdict") else d
+    dev = resolve_device(device)
+    return WorldMesh(**{k: torch.tensor(np.asarray(d[k]), dtype=dtype, device=dev)
+                        for k in WorldMesh._fields})

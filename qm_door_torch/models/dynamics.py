@@ -82,10 +82,11 @@ def inverse_dynamics(model: RobotModel, q, v, a):
 def forward_dynamics(model: RobotModel, q, v, tau_gen):
     """a = M^{-1}(tau_gen - h): unconstrained forward dynamics; ``tau_gen`` is
     the full 24-dim generalized force (contact forces already mapped through
-    J^T by the caller)."""
+    J^T by the caller). ``solve_ex``: no host read of the factorization's
+    status (a singular M gives non-finite a, as jnp.linalg.solve does)."""
     M = mass_matrix(model, q)
     h = nonlinear_effects(model, q, v)
-    return torch.linalg.solve(M, (tau_gen - h)[..., None])[..., 0]
+    return torch.linalg.solve_ex(M, (tau_gen - h)[..., None])[0][..., 0]
 
 
 def com_position(model: RobotModel, q):

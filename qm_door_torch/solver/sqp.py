@@ -211,16 +211,18 @@ class SqpSolver:
 
     def warm_start(self, prev_times, prev_X, prev_U, new_times):
         """Shift the previous solution onto the new grid (MPC warm start):
-        states interpolated linearly, inputs held (zero-order)."""
+        states interpolated linearly, inputs held (zero-order). ``prev_X``
+        (..., N+1, 30) and ``prev_U`` (..., N, nu) may lead with a batch
+        axis: every scenario shifts on the shared times at once."""
         N = self.n_intervals
         last = prev_times.shape[0] - 2
         idx = torch.clamp(torch.searchsorted(prev_times, new_times, right=True) - 1, 0, last)
         t0, t1 = prev_times[idx], prev_times[idx + 1]
         a = torch.clamp((new_times - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)[:, None]
-        X = (1 - a) * prev_X[idx] + a * prev_X[idx + 1]
+        X = (1 - a) * prev_X[..., idx, :] + a * prev_X[..., idx + 1, :]
         idx_u = torch.clamp(torch.searchsorted(prev_times[:-1], new_times[:N], right=True) - 1,
-                            0, prev_U.shape[0] - 1)
-        return X, prev_U[idx_u]
+                            0, prev_U.shape[-2] - 1)
+        return X, prev_U[..., idx_u, :]
 
     def _solve_impl(self, stage: StageData, x_init, X, U) -> SqpSolution:
         for _ in range(self.settings.sqp_iterations):

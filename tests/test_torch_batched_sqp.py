@@ -1,11 +1,13 @@
 """The torch port's whole batched SQP iteration against the JAX package's
-batch-major backends, float64 on the CPU, at the JAX test's own bar
-(tests/test_batched_sqp.py): rtol = 1e-8, atol = 1e-9. Port ``bm_k1``
-against JAX ``bm_xla`` (XLA Cholesky) and ``bm_pallas`` (the Pallas SPD
-kernel, here in interpret mode); ``bm_fused`` against JAX ``bm_fused``;
-``lq_fused`` against JAX ``bm_xla`` (JAX's own ``pallas`` backend passes no
-``interpret`` and cannot run on the CPU; its LQ stage is held against
-``pallas_lq.solve_lq_batched`` in tests/test_torch_solver.py)."""
+batch-major iteration, float64 on the CPU, at the JAX test's own bar
+(tests/test_batched_sqp.py): rtol = 1e-8, atol = 1e-9. Every port backend
+(``bm_k1`` twice, ``bm_fused``, ``lq_fused``) is held to one JAX ``bm_xla``
+iteration (XLA Cholesky), computed once per test run
+(torch_parity.shared_reference): JAX's own tests hold its ``bm_pallas`` and
+``bm_fused`` iterations to ``bm_xla`` (tests/test_batched_sqp.py), and its
+Pallas kernels are held in interpret mode at small shapes by
+tests/test_torch_ops.py (K1), tests/test_torch_riccati_fused.py (K2) and
+tests/test_torch_lq_kernels.py (K3a-d)."""
 import dataclasses
 
 import jax
@@ -20,7 +22,8 @@ from qm_door_torch.solver.sqp import SqpSolver
 from qm_door_torch.solver.sqp import _settings_static as t_settings
 from qm_door_tpu.solver import batched_sqp as j_bsqp
 from qm_door_tpu.solver.sqp import _settings_static as j_settings
-from torch_parity import F64, Problem, to_np
+from torch_parity import F64, Problem, shared_reference, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 
 @pytest.fixture(scope="module")
@@ -45,19 +48,28 @@ def _t_step(P, X=None, U=None, dtype=F64, backend="bm_k1"):
         backend=backend)
 
 
-# case -> (JAX backend, port backend)
-CASES = {"bm_xla": ("bm_xla", "bm_k1"), "bm_pallas": ("bm_pallas", "bm_k1"),
-         "bm_fused": ("bm_fused", "bm_fused"), "lq_fused": ("bm_xla", "lq_fused")}
+def j_iteration(tmp_path_factory, P):
+    """JAX's batch-major bm_xla iteration on P's iterate, once per run."""
+    def compute():
+        settings = j_settings(P.jcfg.sqp)
+        return jax.jit(lambda x, X, U: j_bsqp.batched_sqp_iteration(
+            P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend="bm_xla"))(
+            jnp.asarray(P.xb), jnp.asarray(P.X), jnp.asarray(P.U))
+
+    return shared_reference(tmp_path_factory, "batched_sqp_iteration bm_xla", compute,
+                            P.xb, P.X, P.U, np.asarray(P.jstage.contact_flags))
+
+
+# case -> port backend; each is held to JAX bm_xla (the case names are the JAX
+# backends the port's backends stand for)
+CASES = {"bm_xla": "bm_k1", "bm_pallas": "bm_k1", "bm_fused": "bm_fused",
+         "lq_fused": "lq_fused"}
 
 
 @pytest.mark.parametrize("backend", list(CASES))
-def test_iteration_matches_jax(P, backend):
-    j_backend, t_backend = CASES[backend]
-    settings = j_settings(P.jcfg.sqp)
-    j_fn = jax.jit(lambda x, X, U: j_bsqp.batched_sqp_iteration(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend=j_backend))
-    Xj, Uj, sj = j_fn(jnp.asarray(P.xb), jnp.asarray(P.X), jnp.asarray(P.U))
-    Xt, Ut, st = _t_step(P, backend=t_backend)
+def test_iteration_matches_jax(tmp_path_factory, P, backend):
+    Xj, Uj, sj = j_iteration(tmp_path_factory, P)
+    Xt, Ut, st = _t_step(P, backend=CASES[backend])
     tol = dict(rtol=1e-8, atol=1e-9)
     np.testing.assert_allclose(to_np(Xt), np.asarray(Xj), err_msg="X", **tol)
     np.testing.assert_allclose(to_np(Ut), np.asarray(Uj), err_msg="U", **tol)

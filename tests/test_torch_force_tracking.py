@@ -3,9 +3,13 @@ input) against the JAX package, float64 on the CPU: the flow map, the
 ocp/force.py functions and the converter at 1e-10; the 36-wide
 quadratization, analytic linearization and both projections at 1e-9 /
 1e-10; the Riccati solve with the grasp gate; and the whole batched
-iteration against JAX ``bm_xla`` and ``bm_fused`` at the JAX test's own bar
-(tests/test_batched_sqp.py), rtol 1e-8 / atol 1e-9, with the off-grasp
-wrench exactly 0; the per-scenario iteration against the same JAX result."""
+iteration on the port's ``bm_k1`` and ``bm_fused`` against JAX ``bm_xla`` at
+the JAX test's own bar (tests/test_batched_sqp.py), rtol 1e-8 / atol 1e-9,
+with the off-grasp wrench exactly 0; the per-scenario iteration against the
+same JAX result. The JAX linearization and iteration are computed once per
+test run (torch_parity.shared_reference); JAX's own tests hold its
+``bm_fused`` iteration to ``bm_xla``, and tests/test_torch_riccati_fused.py
+holds its K2 kernel in interpret mode at nu = 36."""
 import dataclasses
 
 import jax
@@ -32,7 +36,8 @@ from qm_door_tpu.solver import projection as j_proj
 from qm_door_tpu.solver import transcription as j_tr
 from qm_door_tpu.solver.riccati import lqr_solve_batched as j_lqr
 from qm_door_tpu.solver.sqp import _settings_static as j_settings
-from torch_parity import F64, ProblemFT, as_numpy_fields, to_np
+from torch_parity import F64, ProblemFT, as_numpy_fields, shared_reference, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 LQ_FIELDS = ("A", "B", "d", "lx", "lu", "lxx", "luu", "lux", "cost", "g0", "Gx", "Gv",
              "lx_f", "lxx_f")
@@ -148,11 +153,15 @@ def test_stage_cost_and_quadratization_36_match_jax(P, XU, box):
 
 
 @pytest.fixture(scope="module")
-def j_lq(P, XU):
-    fn = jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U,
-        sensitivity="frozen", tangents="analytic")))
-    return fn(jnp.asarray(XU[0]), jnp.asarray(XU[1]))
+def j_lq(tmp_path_factory, P, XU):
+    def compute():
+        fn = jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
+            P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U,
+            sensitivity="frozen", tangents="analytic")))
+        return fn(jnp.asarray(XU[0]), jnp.asarray(XU[1]))
+
+    return shared_reference(tmp_path_factory, "linearize_ocp ft analytic frozen", compute,
+                            *XU, P.grasp)
 
 
 def test_linearize_analytic_36_matches_jax(P, XU, j_lq):
@@ -195,15 +204,19 @@ def test_project_batched_36_matches_jax(P, XU, j_lq, t_lq, backend):
 
 
 @pytest.mark.parametrize("backend", ["k1", "fused"])
-def test_riccati_recovers_the_wrench_through_the_gate(P, XU, j_lq, t_lq, backend):
+def test_riccati_recovers_the_wrench_through_the_gate(tmp_path_factory, P, XU, j_lq, t_lq,
+                                                     backend):
     """Backward sweep (K1 scan or K2 plain) and forward rollout with the
-    grasp gate against JAX; the off-grasp wrench delta is exactly -W."""
+    grasp gate against JAX (one XLA solve a run, both backends held to it);
+    the off-grasp wrench delta is exactly -W."""
     flags = np.broadcast_to(np.asarray(P.jstage.contact_flags[:P.N]), (2, P.N, 4))
     grasp = np.broadcast_to(P.grasp[:P.N], (2, P.N))
     dx0 = P.xb - XU[0][:, 0]
-    j_out = jax.jit(lambda lq, f, U, g, dx: j_lqr(j_tr.project_ocp_batched(
-        lq, f, U, shift=1e-5, grasp=g, backend="xla"), dx, backend="xla"))(
-        j_lq, flags, XU[1], grasp, dx0)
+    j_out = shared_reference(
+        tmp_path_factory, "project_ocp_batched + lqr_solve_batched ft xla",
+        lambda: jax.jit(lambda lq, f, U, g, dx: j_lqr(j_tr.project_ocp_batched(
+            lq, f, U, shift=1e-5, grasp=g, backend="xla"), dx, backend="xla"))(
+            j_lq, flags, XU[1], grasp, dx0), *XU, grasp, dx0)
     t_plq = t_tr.project_ocp_batched(t_lq, P.t(flags), P.t(XU[1]), shift=1e-5,
                                      grasp=P.t(grasp))
     t_out = t_lqr(t_plq, P.t(dx0), backend=backend)
@@ -219,12 +232,16 @@ def _t_iterate(P, backend, X, U, x=None):
 
 
 @pytest.fixture(scope="module")
-def j_iter(P):
+def j_iter(tmp_path_factory, P):
     """JAX bm_xla from the cold (zero-wrench) iterate, at B = 2."""
-    settings = j_settings(P.jcfg.sqp)
-    fn = jax.jit(lambda x, X, U: j_bsqp.batched_sqp_iteration(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend="bm_xla"))
-    return fn(jnp.asarray(P.xb), jnp.asarray(P.X), jnp.asarray(P.U))
+    def compute():
+        settings = j_settings(P.jcfg.sqp)
+        fn = jax.jit(lambda x, X, U: j_bsqp.batched_sqp_iteration(
+            P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend="bm_xla"))
+        return fn(jnp.asarray(P.xb), jnp.asarray(P.X), jnp.asarray(P.U))
+
+    return shared_reference(tmp_path_factory, "batched_sqp_iteration ft bm_xla", compute,
+                            P.xb, P.X, P.U, P.grasp)
 
 
 def _check_iterate(P, out, ref):
@@ -244,12 +261,8 @@ def test_iteration_36_bm_k1_matches_jax(P, j_iter):
     _check_iterate(P, _t_iterate(P, "bm_k1", P.X, P.U), j_iter)
 
 
-def test_iteration_36_bm_fused_matches_jax_bm_fused(P):
-    settings = j_settings(P.jcfg.sqp)
-    fn = jax.jit(lambda x, X, U: j_bsqp.batched_sqp_iteration(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, settings, x, X, U, backend="bm_fused"))
-    ref = fn(jnp.asarray(P.xb), jnp.asarray(P.X), jnp.asarray(P.U))
-    _check_iterate(P, _t_iterate(P, "bm_fused", P.X, P.U), ref)
+def test_iteration_36_bm_fused_matches_jax_bm_fused(P, j_iter):
+    _check_iterate(P, _t_iterate(P, "bm_fused", P.X, P.U), j_iter)
 
 
 def test_per_scenario_iteration_36_matches_jax(P, j_iter):

@@ -1,5 +1,6 @@
 """The torch port stands alone: qm_door_torch and chip_smoke.py import
-neither JAX, flax nor the JAX package (qm_door_tpu). And no kernel wrapper
+neither JAX, flax nor the JAX package (qm_door_tpu), and the port reads its
+own copies of the assets (the robot and the collision worlds). And no kernel wrapper
 gives way: nothing in ``qm_door_torch/ops`` catches an exception, so a
 launch error can only raise."""
 import ast
@@ -46,7 +47,10 @@ def test_importing_every_port_module_loads_no_jax():
 
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("qm_door_torch.solver.batched_sqp", "qm_door_torch.wbc.wbc",
-                 "qm_door_torch.wbc.force"):
+                 "qm_door_torch.wbc.force", "qm_door_torch.sim.terrain",
+                 "qm_door_torch.sim.world", "qm_door_torch.sim.sim",
+                 "qm_door_torch.sim.batched_rollout", "qm_door_torch.runtime.mrt",
+                 "qm_door_torch.runtime.safety"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -88,3 +92,19 @@ def test_no_wrapper_catches_a_launch_error(path):
     handlers = [node.lineno for node in ast.walk(tree)
                 if isinstance(node, (ast.Try, getattr(ast, "TryStar", ast.Try)))]
     assert handlers == [], f"try/except at lines {handlers}"
+
+
+@pytest.mark.parametrize("asset,module,attr", [
+    ("aliengo_z1.json", "qm_door_torch.models.model", "_ASSET"),
+    ("worlds.json", "qm_door_torch.sim.world", "_ASSET"),
+])
+def test_assets_are_the_ports_own_copies(asset, module, attr):
+    """Each asset the port reads lies in qm_door_torch/assets, and holds what
+    the JAX package's copy holds."""
+    import importlib
+
+    path = os.path.realpath(getattr(importlib.import_module(module), attr))
+    assert path == os.path.join(ROOT, "qm_door_torch", "assets", asset)
+    with open(path, "rb") as ours, open(os.path.join(ROOT, "qm_door_tpu", "assets", asset),
+                                        "rb") as theirs:
+        assert ours.read() == theirs.read()

@@ -12,7 +12,8 @@ import torch
 
 from qm_door_torch.solver import transcription as t_tr
 from qm_door_tpu.solver import transcription as j_tr
-from torch_parity import Problem, ProblemFT, to_np
+from torch_parity import Problem, ProblemFT, shared_reference, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 LQ_FIELDS = ("A", "B", "d", "lx", "lu", "lxx", "luu", "lux", "cost", "g0", "Gx", "Gv",
              "lx_f", "lxx_f")
@@ -38,29 +39,34 @@ def _t_lin(P, tangents, sensitivity):
                               sensitivity=sensitivity, tangents=tangents)
 
 
-def _j_lin(P, tangents, sensitivity):
-    fn = jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U,
-        sensitivity=sensitivity, tangents=tangents)))
-    return fn(jnp.asarray(P.X), jnp.asarray(P.U))
+def _j_lin(tmp_path_factory, P, tangents, sensitivity):
+    """JAX's linearization of P's iterate, once per test run."""
+    def compute():
+        fn = jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
+            P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U,
+            sensitivity=sensitivity, tangents=tangents)))
+        return fn(jnp.asarray(P.X), jnp.asarray(P.U))
+
+    return shared_reference(tmp_path_factory, f"linearize_ocp {tangents} {sensitivity}",
+                            compute, P.X, P.U)
 
 
 @pytest.mark.parametrize("tangents,sensitivity", [
     ("f32", "frozen"), ("f32", "rk2"), ("analytic", "rk2")])
-def test_linearize_matches_jax(P, j_f32, tangents, sensitivity):
+def test_linearize_matches_jax(tmp_path_factory, P, j_f32, tangents, sensitivity):
     t_lq = _t_lin(P, tangents, sensitivity)
     j_lq = j_f32 if (tangents, sensitivity) == ("f32", "frozen") else \
-        _j_lin(P, tangents, sensitivity)
+        _j_lin(tmp_path_factory, P, tangents, sensitivity)
     for f in LQ_FIELDS:
         np.testing.assert_allclose(to_np(getattr(t_lq, f)), np.asarray(getattr(j_lq, f)),
                                    err_msg=f, **TOL)
 
 
 @pytest.fixture(scope="module")
-def j_f32(P):
+def j_f32(tmp_path_factory, P):
     """JAX's f32 branch (frozen): its primals are those of either
     sensitivity and of the bf16 branch."""
-    return _j_lin(P, "f32", "frozen")
+    return _j_lin(tmp_path_factory, P, "f32", "frozen")
 
 
 @pytest.mark.parametrize("tangents,sensitivity", [

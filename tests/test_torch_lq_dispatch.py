@@ -20,6 +20,7 @@ from chip_smoke import NODE_COST, PROJECTION_PATTERNS, PROJECTION_REL_TOL, proje
 from qm_door_torch.ops import lq as tl
 from qm_door_tpu.ops import pallas_lq as pk
 from torch_parity import to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIFT = 1e-5

@@ -19,6 +19,7 @@ from qm_door_torch.ops import lq as tl
 from qm_door_tpu.ops import pallas_lq as pk
 from test_torch_lq_dispatch import _c_params
 from torch_parity import to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (Bb, N) of the JAX parity cases: a few nodes of every pattern, and one node

@@ -17,6 +17,7 @@ from qm_door_tpu.ocp import constraints as cons
 from qm_door_tpu.ops import pallas_lq as pk
 from test_pallas_lq import BT, SHIFT, B, N, _random_lq
 from torch_parity import as_numpy_fields, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 PROJ = ("A_bar", "B_bar", "d_bar", "lx", "lu", "lxx", "luu", "lux", "p", "P", "Px_v")
 # test_pallas_lq.py's bars: geometry at atol 1e-10, cost terms at 1e-8

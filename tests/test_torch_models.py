@@ -20,6 +20,7 @@ from qm_door_tpu.models import dynamics as j_dyn
 from qm_door_tpu.models import kinematics as j_kin
 from qm_door_tpu.models import spatial as j_sp
 from torch_parity import F64, as_numpy_fields, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 NB = 5  # samples per check

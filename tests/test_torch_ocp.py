@@ -29,6 +29,7 @@ from qm_door_tpu.ocp.swing import SwingConfig as JSwingConfig
 from qm_door_tpu.ocp.swing import compile_swing_references as j_swing
 from qm_door_tpu.solver.sqp import evaluate_trajectory as j_evaluate
 from torch_parity import F64, Problem, as_numpy_fields, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 

@@ -1,6 +1,9 @@
 """K1 (qm_door_torch/ops/spd_solve.py): the plain version against the JAX
-kernel in interpret mode and its XLA reference, in float64 at 1e-10; K1-ll
-(``spd_solve_ll``, lanes-last) against JAX's ``spd_solve_ll``; the
+kernel's XLA reference at every shape and against the kernel itself in
+interpret mode at the smallest (SHAPES[0]: a ragged lane batch through the
+same unrolled factor and substitutions as every shape), in float64 at
+1e-10; K1-ll (``spd_solve_ll``, lanes-last) the same way against JAX's
+``spd_solve_ll``; the
 wrappers' dispatch and input checks on the CPU; the build's library names
 and the ptxas report it keeps. The CUDA kernel itself is held against the
 plain version on the card by chip_smoke.py."""
@@ -17,6 +20,7 @@ from qm_door_tpu.ops.pallas_chol import spd_solve as j_spd_solve
 from qm_door_tpu.ops.pallas_chol import spd_solve_ll as j_spd_solve_ll
 from qm_door_tpu.ops.pallas_chol import spd_solve_reference as j_spd_reference
 from torch_parity import to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 SHAPES = [(7, 12, 49), (5, 30, 31), (3, 58, 8)]
@@ -34,8 +38,9 @@ def test_plain_matches_jax_kernel_and_reference(shape, shift):
     A, Y = _spd(np.random.default_rng(sum(shape)), *shape)
     out = to_np(spd_solve_plain(torch.as_tensor(A), torch.as_tensor(Y), shift=shift))
     jA, jY = jnp.asarray(A), jnp.asarray(Y)
-    np.testing.assert_allclose(out, np.asarray(j_spd_solve(jA, jY, shift=shift, interpret=True)),
-                               **TOL)
+    if shape == SHAPES[0]:  # interpret mode costs minutes at the larger shapes
+        np.testing.assert_allclose(
+            out, np.asarray(j_spd_solve(jA, jY, shift=shift, interpret=True)), **TOL)
     np.testing.assert_allclose(out, np.asarray(j_spd_reference(jA, jY, shift=shift)), **TOL)
 
 
@@ -47,7 +52,10 @@ def test_lanes_last_matches_jax(shape):
     out = spd_solve_ll(torch.as_tensor(At), torch.as_tensor(Yt), shift=1e-3)
     assert spd_solve_ll.launches == before
     assert out.shape == Yt.shape and out.is_contiguous()
-    ref = j_spd_solve_ll(jnp.asarray(At), jnp.asarray(Yt), shift=1e-3, interpret=True)
+    if shape == SHAPES[0]:
+        ref = j_spd_solve_ll(jnp.asarray(At), jnp.asarray(Yt), shift=1e-3, interpret=True)
+    else:
+        ref = np.transpose(j_spd_reference(jnp.asarray(A), jnp.asarray(Y), shift=1e-3), (1, 2, 0))
     np.testing.assert_allclose(to_np(out), np.asarray(ref), **TOL)
     np.testing.assert_allclose(
         to_np(out), np.transpose(to_np(spd_solve_plain(torch.as_tensor(A),

@@ -31,7 +31,8 @@ from qm_door_tpu.solver import transcription as j_tr
 from qm_door_tpu.solver.sqp import SqpSolver as JSqpSolver
 from qm_door_tpu.solver.sqp import _settings_static as j_settings
 from qm_door_tpu.solver.sqp import evaluate_trajectory as j_evaluate
-from torch_parity import Problem, as_numpy_fields, to_np
+from torch_parity import Problem, as_numpy_fields, shared_reference, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 TOL9 = dict(rtol=1e-9, atol=1e-9)
@@ -71,10 +72,12 @@ def test_quad_only_config_matches_jax(Q):
 
 
 @pytest.fixture(scope="module")
-def j_lq(Q):
-    return jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
-        Q.jmodel, Q.jocp, Q.jstage, Q.jcfg.sqp.dt, X, U, sensitivity="frozen",
-        tangents="analytic")))(jnp.asarray(Q.Xp), jnp.asarray(Q.Up))
+def j_lq(tmp_path_factory, Q):
+    return shared_reference(
+        tmp_path_factory, "linearize_ocp arm_locked analytic frozen",
+        lambda: jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
+            Q.jmodel, Q.jocp, Q.jstage, Q.jcfg.sqp.dt, X, U, sensitivity="frozen",
+            tangents="analytic")))(jnp.asarray(Q.Xp), jnp.asarray(Q.Up)), Q.Xp, Q.Up)
 
 
 @pytest.fixture(scope="module")

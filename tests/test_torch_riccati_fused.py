@@ -1,11 +1,17 @@
 """K2 (qm_door_torch/ops/riccati_fused.py): the plain version and the
 ``fused`` Riccati backend against the JAX kernel
-(``pallas_riccati.riccati_backward_fused_lq``, interpret mode), float64 on
-the CPU, on the data recipe of tests/test_pallas_ops.py. Bars: 1e-10 at
-(5, 9, 7, 4), 1e-8 at the production widths (the JAX test's own). The CUDA
-kernel is held against the plain version on the card by chip_smoke.py."""
+(``pallas_riccati.riccati_backward_fused_lq``) in interpret mode at
+(5, 9, 7, 4), the smallest shape (it runs the kernel's every path: the
+node loop, the symmetrized loads, the shift), and against the kernel's XLA
+reference (``riccati.riccati_backward_batched(backend="xla")``, which JAX's
+tests/test_pallas_ops.py holds the kernel to) at the production widths,
+float64 on the CPU, on the data recipe of tests/test_pallas_ops.py. Bars:
+1e-10 at (5, 9, 7, 4), 1e-8 at the production widths (the JAX test's own).
+The CUDA kernel is held against the plain version on the card by
+chip_smoke.py."""
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +21,11 @@ from qm_door_torch import convert
 from qm_door_torch.ops import riccati_fused as rf
 from qm_door_torch.solver.riccati import lqr_solve_batched
 from qm_door_tpu.ops.pallas_riccati import riccati_backward_fused_lq as j_fused
+from qm_door_tpu.solver.riccati import riccati_backward_batched as j_backward
 from qm_door_tpu.solver.riccati import riccati_forward_batched as j_forward
 from qm_door_tpu.solver.transcription import ProjectedLq as JProjectedLq
 from torch_parity import as_numpy_fields, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 # (Bb, N, nx, nu) -> tolerance
 SHAPES = {(5, 9, 7, 4): 1e-10, (3, 11, 30, 30): 1e-8, (2, 5, 30, 36): 1e-8}
@@ -62,12 +70,19 @@ def _args(plq):
             plq.lx_f)
 
 
+INTERPRET_SHAPE = (5, 9, 7, 4)
+
+
 @functools.lru_cache(maxsize=None)
 def _case(shape):
-    """(JAX data, its torch copy, JAX K2's K and kff): one interpret run per
+    """(JAX data, its torch copy, JAX's K and kff): K2 in interpret mode at
+    INTERPRET_SHAPE, its XLA reference at the production widths; one run a
     shape, shared by the tests of this module."""
     jlq = _random_plq(shape, structured=shape[-1] == 30)
-    K, kff = j_fused(jlq, interpret=True)
+    if shape == INTERPRET_SHAPE:
+        K, kff = j_fused(jlq, interpret=True)
+    else:
+        K, kff = jax.jit(lambda lq: j_backward(lq, backend="xla"))(jlq)
     return jlq, _port(jlq), np.asarray(K), np.asarray(kff)
 
 
@@ -92,9 +107,10 @@ def test_cpu_wrapper_is_the_plain_version_without_a_launch(shape):
 
 def test_fused_backend_matches_jax():
     """lqr_solve_batched(backend="fused") against JAX's fused backend at
-    nu = 30: JAX K2 (the shared interpret run), then JAX's batch-major
-    forward sweep, which is what its ``lqr_solve_batched(backend="fused")``
-    runs. The port's K1 scan solves the same problem."""
+    nu = 30: JAX's backward gains (the shared run: K2's XLA reference), then
+    JAX's batch-major forward sweep, which is what its
+    ``lqr_solve_batched(backend="fused")`` runs after K2. The port's K1 scan
+    solves the same problem."""
     shape = (3, 11, 30, 30)
     jlq, plq, K, kff = _case(shape)
     dx0 = np.random.default_rng(1).normal(size=(shape[0], shape[2])) * 0.1

@@ -1,7 +1,10 @@
 """Torch port's solver stages against the JAX package, float64 on the CPU:
 linearize (analytic, frozen) per node at 1e-9, analytic_bf16 against the
 port's own analytic result, the batched projection against both JAX
-backends, and the Riccati solve, at 1e-9; plus settings validation."""
+backends, and the Riccati solve and the lq_fused LQ stage against JAX's
+XLA projection + Riccati solve, at 1e-9 / 1e-8; plus settings validation.
+The JAX linearization and LQ solve are computed once per test run
+(torch_parity.shared_reference)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,8 @@ from qm_door_tpu.parallel.batched import BatchedMpc as JBatchedMpc
 from qm_door_tpu.solver import transcription as j_tr
 from qm_door_tpu.solver.riccati import lqr_solve_batched as j_lqr
 from qm_door_tpu.solver.sqp import SqpSolver as JSqpSolver
-from torch_parity import Problem, as_numpy_fields, to_np
+from torch_parity import Problem, as_numpy_fields, shared_reference, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 LQ_FIELDS = ("A", "B", "d", "lx", "lu", "lxx", "luu", "lux", "cost", "g0", "Gx", "Gv",
              "lx_f", "lxx_f")
@@ -37,11 +41,16 @@ def P():
 
 
 @pytest.fixture(scope="module")
-def j_lq(P):
-    fn = jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U,
-        sensitivity="frozen", tangents="analytic")))
-    return fn(jnp.asarray(P.X), jnp.asarray(P.U))
+def j_lq(tmp_path_factory, P):
+    """JAX's linearization of P's iterate, once per test run."""
+    def compute():
+        fn = jax.jit(jax.vmap(lambda X, U: j_tr.linearize_ocp(
+            P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U,
+            sensitivity="frozen", tangents="analytic")))
+        return fn(jnp.asarray(P.X), jnp.asarray(P.U))
+
+    return shared_reference(tmp_path_factory, "linearize_ocp analytic frozen", compute,
+                            P.X, P.U)
 
 
 @pytest.fixture(scope="module")
@@ -99,34 +108,46 @@ def test_project_batched_matches_jax(P, j_lq, t_lq_from_jax, flags, backend):
                                    err_msg=f, **TOL)
 
 
-def test_project_and_riccati_match_jax(P, j_lq, t_lq_from_jax, flags):
+@pytest.fixture(scope="module")
+def j_lqr_out(tmp_path_factory, P, j_lq, flags):
+    """JAX's batch-major projection and Riccati solve (XLA) on P's
+    linearization, once per test run: (dX, dU, K, kff)."""
     dx0 = P.xb - P.X[:, 0]
 
     def j_fn(lq, f, U, dx0):
         plq = j_tr.project_ocp_batched(lq, f, U, shift=1e-5, backend="xla")
         return j_lqr(plq, dx0, backend="xla")
 
-    j_out = jax.jit(j_fn)(j_lq, jnp.asarray(flags), jnp.asarray(P.U), jnp.asarray(dx0))
+    return shared_reference(
+        tmp_path_factory, "project_ocp_batched + lqr_solve_batched xla",
+        lambda: jax.jit(j_fn)(j_lq, jnp.asarray(flags), jnp.asarray(P.U), jnp.asarray(dx0)),
+        P.X, P.U, dx0)
+
+
+def test_project_and_riccati_match_jax(P, j_lqr_out, t_lq_from_jax, flags):
+    dx0 = P.xb - P.X[:, 0]
+    j_out = j_lqr_out
     t_plq = t_tr.project_ocp_batched(t_lq_from_jax, P.t(flags), P.t(P.U), shift=1e-5)
     t_out = t_lqr(t_plq, P.t(dx0))
     for name, a, b in zip(("dX", "dU", "K", "kff"), t_out, j_out):
         np.testing.assert_allclose(to_np(a), np.asarray(b), err_msg=name, **TOL)
 
 
-def test_lq_fused_stage_matches_jax_pallas_lq(P, j_lq, t_lq_from_jax, flags):
+def test_lq_fused_stage_matches_jax_pallas_lq(P, j_lqr_out, t_lq_from_jax, flags):
     """The ``lq_fused`` backend's LQ stage (ops/lq.py, K3a-d) on the
-    JAX-linearized trot problem against ``pallas_lq.solve_lq_batched`` in
-    interpret mode (JAX's ``pallas`` backend), with the masks and force
-    reference ``batched_sqp_iteration`` hands it."""
+    JAX-linearized trot problem, with the masks and force reference
+    ``batched_sqp_iteration`` hands it, against the LQ stage of JAX's
+    batch-major XLA path (the shared projection + Riccati solve), which
+    ``pallas_lq.solve_lq_batched`` (JAX's ``pallas`` backend) equals
+    (tests/test_pallas_lq.py); its four kernels are held in interpret mode
+    at a small shape by tests/test_torch_lq_kernels.py."""
     from qm_door_torch.ops.lq import solve_lq_batched as t_solve
     from qm_door_tpu.ocp import constraints as j_cons
-    from qm_door_tpu.ops.pallas_lq import solve_lq_batched as j_solve
 
     dx0 = P.xb - P.X[:, 0]
     act = np.asarray(j_cons.velocity_row_mask(jnp.asarray(flags)))
     fm = np.repeat(flags, 3, axis=-1)
-    dXj, dUj = j_solve(j_lq, jnp.asarray(act), jnp.asarray(fm), jnp.asarray(P.U[:, :, :12]),
-                       jnp.asarray(dx0), shift=1e-5, interpret=True)
+    dXj, dUj = j_lqr_out[:2]
     dX, dU = t_solve(t_lq_from_jax, P.t(act), P.t(fm), P.t(P.U[:, :, :12]), P.t(dx0),
                      shift=1e-5)
     tol = dict(rtol=1e-8, atol=1e-9)

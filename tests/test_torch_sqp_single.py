@@ -22,7 +22,8 @@ from qm_door_tpu.solver import projection as j_proj
 from qm_door_tpu.solver import riccati as j_ric
 from qm_door_tpu.solver import transcription as j_tr
 from qm_door_tpu.solver.sqp import SqpSolver as JSqpSolver
-from torch_parity import Problem, ProblemFT, as_numpy_fields, to_np
+from torch_parity import Problem, ProblemFT, as_numpy_fields, shared_reference, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 TOL9 = dict(rtol=1e-9, atol=1e-9)
@@ -53,11 +54,13 @@ def P():
 
 
 @pytest.fixture(scope="module")
-def lqs(P):
-    """One scenario's LQ data from JAX, in both packages."""
-    j_lq = jax.jit(lambda X, U: j_tr.linearize_ocp(
-        P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U, sensitivity="frozen",
-        tangents="analytic"))(jnp.asarray(P.Xp), jnp.asarray(P.Up))
+def lqs(tmp_path_factory, P):
+    """One scenario's LQ data from JAX (once per test run), in both packages."""
+    j_lq = shared_reference(
+        tmp_path_factory, "linearize_ocp one scenario analytic frozen",
+        lambda: jax.jit(lambda X, U: j_tr.linearize_ocp(
+            P.jmodel, P.jocp, P.jstage, P.jcfg.sqp.dt, X, U, sensitivity="frozen",
+            tangents="analytic"))(jnp.asarray(P.Xp), jnp.asarray(P.Up)), P.Xp, P.Up)
     return j_lq, convert.lq_from_numpy(as_numpy_fields(j_lq), device="cpu")
 
 
@@ -159,47 +162,71 @@ def solvers(P):
     return js, ts
 
 
-def test_sqp_iteration_matches_jax(P, solvers):
+T1 = 1.4 * 0.015  # the warm solve's grid starts between the old grid's nodes
+
+
+@pytest.fixture(scope="module")
+def j_solves(tmp_path_factory, P, solvers):
+    """JAX's jitted solves on P, once per test run (one compile of the
+    solve): one iteration from the perturbed iterate, the cold solve, the
+    warm start onto the grid from T1 and the warm solve from it."""
+    js, _ = solvers
+
+    def compute():
+        from qm_door_tpu.ocp.gait import GAIT_LIBRARY, GaitSchedule
+        from qm_door_tpu.ocp.problem import build_stage_data
+
+        x = jnp.asarray(P.xb[0])
+        iteration = js._solve(P.jstage, x, jnp.asarray(P.Xp), jnp.asarray(P.Up))
+        cold = js.solve(P.jstage, x)
+        sched = GaitSchedule()
+        sched.insert_template(GAIT_LIBRARY["trot"], 0.0, 5.0)
+        stage1 = build_stage_data(P.jmodel, P.jcfg, sched, P.jtargets, T1)
+        warm = (cold.times, cold.X, cold.U)
+        return dict(iteration=iteration, cold=cold, stage1=stage1,
+                    warm_start=js.warm_start(*warm, stage1.times),
+                    warm=js.solve(stage1, cold.X[1], warm=warm))
+
+    return shared_reference(tmp_path_factory, "SqpSolver solves", compute, P.xb, P.Xp, P.Up)
+
+
+def test_sqp_iteration_matches_jax(P, solvers, j_solves):
     """One per-scenario iteration from a perturbed iterate against JAX's
     jitted solve from the same iterate (sqp_iterations = 1: one
     sqp_iteration)."""
     js, ts = solvers
     assert js.settings.sqp_iterations == 1
-    x = P.xb[0]
-    sol = js._solve(P.jstage, jnp.asarray(x), jnp.asarray(P.Xp), jnp.asarray(P.Up))
+    sol = j_solves["iteration"]
     Xt, Ut, st = t_sqp_iteration(P.tmodel, P.tocp, P.tstage, P.tcfg.sqp.dt, ts.settings,
-                                 P.t(x), P.t(P.Xp), P.t(P.Up))
+                                 P.t(P.xb[0]), P.t(P.Xp), P.t(P.Up))
     _close(Xt, sol.X, ITER_TOL, "X")
     _close(Ut, sol.U, ITER_TOL, "U")
     _close(st, (sol.cost, sol.constraint_violation, sol.step_size), ITER_TOL, "stats")
     assert float(st[2]) > 0.0
 
 
-def test_solve_cold_then_warm_matches_jax(P, solvers):
+def test_solve_cold_then_warm_matches_jax(P, solvers, j_solves):
     """SqpSolver.solve from the cold start, then warm-started on the grid
-    one node later (warm_start's interpolation and hold) against JAX."""
-    js, ts = solvers
-    from qm_door_tpu.ocp.gait import GAIT_LIBRARY, GaitSchedule
-    from qm_door_tpu.ocp.problem import build_stage_data
-
-    x = P.xb[0]
-    j_sol = js.solve(P.jstage, jnp.asarray(x))
-    t_sol = ts.solve(P.tstage, P.t(x))
+    from T1 (warm_start's interpolation and hold) against JAX."""
+    _, ts = solvers
+    j_sol = j_solves["cold"]
+    t_sol = ts.solve(P.tstage, P.t(P.xb[0]))
     for f in ("times", "X", "U", "cost", "constraint_violation", "step_size"):
         _close(getattr(t_sol, f), getattr(j_sol, f), ITER_TOL, f)
 
-    sched = GaitSchedule()
-    sched.insert_template(GAIT_LIBRARY["trot"], 0.0, 5.0)
-    t1 = 0.4 * P.jcfg.sqp.dt + P.jcfg.sqp.dt     # between the old grid's nodes
-    j_stage1 = build_stage_data(P.jmodel, P.jcfg, sched, P.jtargets, t1)
-    t_stage1 = convert.stage_data_from_numpy(as_numpy_fields(j_stage1), device="cpu")
-    x1 = np.asarray(j_sol.X[1])
-    X0j, U0j = js.warm_start(j_sol.times, j_sol.X, j_sol.U, j_stage1.times)
+    t_stage1 = convert.stage_data_from_numpy(as_numpy_fields(j_solves["stage1"]), device="cpu")
+    X0j, U0j = j_solves["warm_start"]
     X0t, U0t = ts.warm_start(t_sol.times, t_sol.X, t_sol.U, t_stage1.times)
     _close(X0t, X0j, ITER_TOL, "warm X")
     _close(U0t, U0j, ITER_TOL, "warm U")
-    j_sol1 = js.solve(j_stage1, jnp.asarray(x1), warm=(j_sol.times, j_sol.X, j_sol.U))
-    t_sol1 = ts.solve(t_stage1, P.t(x1), warm=(t_sol.times, t_sol.X, t_sol.U))
+    # the warm start of a batch of scenarios is each scenario's
+    Xb, Ub = ts.warm_start(t_sol.times, torch.stack([t_sol.X, 2 * t_sol.X]),
+                           torch.stack([t_sol.U, 2 * t_sol.U]), t_stage1.times)
+    _close(Xb, np.stack([X0j, 2 * X0j]), ITER_TOL, "batched warm X")
+    _close(Ub, np.stack([U0j, 2 * U0j]), ITER_TOL, "batched warm U")
+    j_sol1 = j_solves["warm"]
+    t_sol1 = ts.solve(t_stage1, P.t(np.asarray(j_sol.X[1])),
+                      warm=(t_sol.times, t_sol.X, t_sol.U))
     for f in ("X", "U", "cost", "constraint_violation", "step_size"):
         _close(getattr(t_sol1, f), getattr(j_sol1, f), ITER_TOL, f"warm solve {f}")
     assert float(t_sol1.constraint_violation) < float(t_sol.constraint_violation)

@@ -37,6 +37,7 @@ from qm_door_tpu.wbc import force as j_force
 from qm_door_tpu.wbc import tasks as j_tasks
 from qm_door_tpu.wbc import wbc as j_wbc
 from torch_parity import F64, as_numpy_fields, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 TICK = 1e-8       # float64 ticks, relative to max|cmd|
@@ -106,8 +107,9 @@ def test_wbc_data_and_tasks_match_jax():
     tm = t_aliengo_z1(dtype=F64, device="cpu")
     ws = default_config().wbc
     xs, us, rbds, flags, last = _inputs(36)
-    jd = jax.vmap(lambda x, u, r, f, il: j_tasks.build_wbc_data(jm, x, u, r, f, il, PERIOD))(
-        *_j((xs, us, rbds, flags, last)))
+    # jitted: eager JAX takes twice the compile's time here
+    jd = jax.jit(jax.vmap(lambda x, u, r, f, il: j_tasks.build_wbc_data(
+        jm, x, u, r, f, il, PERIOD)))(*_j((xs, us, rbds, flags, last)))
     td = t_tasks.build_wbc_data(tm, *_t((xs, us, rbds, flags, last)), PERIOD)
     jfields = as_numpy_fields(jd)
     for name, ref in jfields.items():

@@ -19,6 +19,7 @@ from qm_door_torch.wbc import qp as t_qp
 from qm_door_tpu.wbc import hoqp as j_hoqp
 from qm_door_tpu.wbc import qp as j_qp
 from torch_parity import F64, to_np
+from torch_parity import release_jax_executables  # noqa: F401 (autouse, module scope)
 
 REL = 1e-8      # relative to max|ref|, against the JAX function
 STACKED = 5e-6  # the reference's bar against the stacked oracle
