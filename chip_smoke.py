@@ -24,7 +24,10 @@ Phases:
       16, 17, 32, 33 and 64, m = 64 and 65, odd RHS widths, a shift, a
       misaligned base, NaN above the diagonal (never read), that each goes
       to the variant k1_variant names, and that the wrapper refuses
-      float64, n > 64 and too much shared memory.
+      float64, n > 128 (n = 129) and too much shared memory. Past the old
+      n <= 64 bound, the smem kernel at 512 x 65 x 65 x 1, 512 x 92 x 92 x
+      1 (wbc/qp.py:solve_qp_batched's stacked Newton systems) and 512 x
+      128 x 128 x 1, held and timed as the path's shapes.
   (b) main path: BatchedMpc at B = 384, N = 67 (AlienGo+Z1 trot,
       lin_tangents="analytic_bf16", sensitivity="frozen", 2 linesearch
       candidates, seed-0 perturbations x 0.02): one cold step and 20 warm
@@ -75,7 +78,7 @@ Phases:
       ms at (b)'s iterate and its max|dX|, |dU| difference from bm_k1 there,
       and (c)'s cross-precision check for each.
   (f) backends in mirrored pairs: bm_k1, bm_fused, lq_fused, lq_fused,
-      bm_fused, bm_k1, 5 steps each on the problems (b) and (e) built, host
+      bm_fused, bm_k1, 2 steps each on the problems (b) and (e) built, host
       ms a step of each turn and each backend's mean.
   (g) force tracking (nu = 36) at full width: (b)'s problem with the stage
       widened (grasp from t >= 0.3 s, wrench reference [4, 0, -9, 0, 0,
@@ -100,7 +103,7 @@ Phases:
   (h) the whole-body cascade (wbc/wbc.py:hierarchical_wbc_batched, 36
       variables, and wbc/force.py:hierarchical_wbc_ft_batched, 42, with the
       wrench) as tools/wbc_bench.py runs them: B = 512 in f32, one cold and
-      20 chained ticks (xs += 1e-9 * cmd[:, :30]) a stack, K1 exactly 101
+      5 chained ticks (xs += 1e-9 * cmd[:, :30]) a stack, K1 exactly 101
       launches a tick, by variant (nominal 97 smem + 4 reg32, ft 101 smem)
       and by shape (93 Newton, 4 + 4 Gram), ticks/s, host ms and device
       busy ms a tick, the card's idle share; every K1 call of one tick
@@ -131,13 +134,31 @@ Phases:
       state finite, all 1024 alive, every base within 5 cm of the stance
       height; K1 at the loop's five shapes timed beside its bound, its
       plain version and torch.linalg; at B = 4 and 2 cycles the card's f32
-      loop against the CPU's f64 loop on the base pose and the joint
-      positions after each cycle (LOOP_CROSS_BARS).
+      loop against the CPU's f64 loop (run in a spawned process once the
+      timings are taken) on the base pose and the joint positions after
+      each cycle (LOOP_CROSS_BARS).
+  (j) one robot, the README's entry point (sim/closed_loop.py:
+      ClosedLoopRunner) on tools/record_trace.py:canonical_trot_run's
+      set-up: AlienGo+Z1, default_config() with the legs and the arm
+      commanded from t = 0, N = 67, f32, 0.36 s of the trot (360 physics
+      steps, 180 ticks, 37 solves), every solve, tick and physics step
+      timed between two synchronizes (host ms against the 10 / 2 / 1 ms
+      periods), one solve and one tick under torch.profiler (the card's
+      idle share of each) and their K1 calls held to f64; K1 exactly 68 a
+      solve and 101 a tick, by variant and shape; held to the golden trace's
+      first 180 rows (docs/artifacts/trot_2s_trace.jsonl) at TROT_BARS; K1
+      at the solve's and the tick's batch-1 shapes timed beside its bound,
+      its plain version and torch.linalg; then the separated WBC and the
+      Kalman filter (sensor_noise="default") for 0.01 s each, K1 exact, the
+      card's f32 run against the port's own f64 run on the CPU (computed
+      meanwhile in two spawned processes, once the trot's timings are
+      taken) at SIDE_BARS: the base pose, the leg and the arm joints.
 
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
 second time, on (g)'s force-tracking path; K1 at (h)'s six shapes; K1 on
-(i)'s path, a cycle's work); the last line is {"ok": true, "device": {...}}.
+(i)'s path, a cycle's work; K1 on (j)'s path, a solve and five ticks); the
+last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -494,6 +515,9 @@ def phase_kernels(dev):
     shapes += [(f"wbc_{stack}_{kind}", WBC_BATCH, n, m, 0)
                for stack, by_shape in WBC_K1_SHAPES.items()
                for kind, (n, m, _) in by_shape.items()]
+    # K1's range past n = 64: the stacked interior-point systems of
+    # wbc/qp.py:solve_qp_batched (n + nv = 92) and the bound's ends
+    shapes += [(label, WBC_BATCH, n, 1, 0) for label, n in K1_RANGE_SHAPES]
     rows = []
     for label, batch, n, m, per_step in shapes:
         A64, Y64 = spd_batch(rng, batch, n, m)
@@ -540,12 +564,20 @@ def phase_kernels(dev):
         log("[a] " + json.dumps(row))
         rows.append(row)
     check_k1_edges(dev, rng)
+    check_stacked_qp(dev, rng)
     return rows
 
 
+K1_RANGE_SHAPES = (("range_65", 65), ("stacked_qp_92", 92), ("range_128", 128))
+# wbc/qp.py:solve_qp_batched on the stacked form of a level QP at the WBC's
+# sizes (n = 36 variables, nv = 56 slacked inequalities: n + nv = 92, K1's
+# smem variant past the old n <= 64 bound), B = 512
+STACKED_QP = {"batch": 512, "n": 36, "nv": 56, "mp": 8}
+STACKED_QP_CPU = 32  # the problems also solved on the CPU (f64 and f32), and
+# those of each K1 call held to f64
 K1_EDGES = (  # batch, n, m, shift
     (1, 1, 1, 0.0), (7, 12, 5, 0.5), (1000, 12, 49, 1e-3), (1001, 30, 33, 0.0),
-    (33, 64, 1, 1e-5), (5, 17, 100, 0.0),
+    (33, 64, 1, 1e-5), (5, 17, 100, 0.0), (3, 65, 7, 1e-3), (2, 128, 33, 0.0), (9, 100, 1, 0.0),
     # the variants' boundaries: n = 16 | 17 and 32 | 33, m = 64 | 65
     (1058, 16, 40, 0.0), (37, 17, 40, 1e-3), (1059, 32, 31, 0.0), (9, 33, 31, 0.0),
     (11, 12, 64, 0.0), (11, 12, 65, 0.0), (6, 30, 64, 1e-3), (6, 30, 65, 0.0),
@@ -555,6 +587,69 @@ K1_EDGES = (  # batch, n, m, shift
     # (g)'s SqpSolver.solve: the projection's node solves and a one-system gain
     (67, 12, 18, 0.0), (1, 30, 31, 0.0),
 )
+
+
+def check_stacked_qp(dev, rng):
+    """wbc/qp.py:solve_qp_batched on the card at STACKED_QP's sizes: the
+    stacked [z; v] form of random level QPs (tests/test_wbc_batched.py's
+    recipe) in f32, its 30 Newton solves and the polish on K1 at
+    (512, 92, 1), exactly 31 launches, the first STACKED_QP_CPU systems of
+    each held to f64 (check_wbc_k1_calls); the solution finite and feasible
+    to 1e-3, and on
+    the first STACKED_QP_CPU problems its objective off the CPU's f64 solve
+    (relative to max(1, |f64|), the mean over the problems) by at most
+    twice the CPU's own f32 solve's: the f32 interior point stops at mu_tol
+    and polishes, which leaves its objective percents off the f64 one on
+    this recipe (a few percent in the JAX package's f32 solve too)."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.wbc import qp
+
+    B, n, nv, mp = (STACKED_QP[k] for k in ("batch", "n", "nv", "mp"))
+    Az = rng.normal(size=(B, n + 2, n))
+    H = np.zeros((B, n + nv, n + nv))
+    H[:, :n, :n] = np.swapaxes(Az, -1, -2) @ Az + 1e-6 * np.eye(n)
+    H[:, n:, n:] = np.eye(nv)
+    c = np.concatenate([rng.normal(size=(B, n)), np.zeros((B, nv))], axis=-1)
+    eye = np.broadcast_to(np.eye(nv), (B, nv, nv))
+    G = np.concatenate([np.concatenate([rng.normal(size=(B, nv, n)), -eye], axis=-1),
+                        np.concatenate([np.zeros((B, nv, n)), -eye], axis=-1),
+                        np.concatenate([rng.normal(size=(B, mp, n)), np.zeros((B, mp, nv))],
+                                       axis=-1)], axis=1)
+    h = np.concatenate([rng.normal(size=(B, nv)) + 0.5, np.zeros((B, nv)),
+                        rng.normal(size=(B, mp)) + 0.5], axis=-1)
+
+    def solve(device, dtype, k=B):
+        return qp.solve_qp_batched(*(torch.tensor(a[:k], dtype=dtype, device=device)
+                                     for a in (H, c, G, h)))[0].double().cpu().numpy()
+
+    reset_launches()
+    with k1_calls(qp) as calls:
+        z = solve(dev, torch.float32)
+        torch.cuda.synchronize()
+    by_shape = dict(spd_solve.launches_by_shape)
+    k = STACKED_QP_CPU
+    k1 = check_wbc_k1_calls([(A[:k], Y[:k], shift, X[:k]) for A, Y, shift, X in calls],
+                            "in solve_qp_batched (stacked)")
+    k1["calls_by_shape"] = shape_keys(k1["calls_by_shape"])
+    del calls
+    cpu = torch.device("cpu")
+    z64, z32 = solve(cpu, torch.float64, k), solve(cpu, torch.float32, k)
+    obj = lambda x: (0.5 * np.einsum("bi,bij,bj->b", x, H[:k], x)  # noqa: E731
+                     + np.einsum("bi,bi->b", c[:k], x))
+    rel = lambda x: float((np.abs(obj(x[:k]) - obj(z64))  # noqa: E731
+                           / np.maximum(1.0, np.abs(obj(z64)))).mean())
+    feas = float((np.einsum("bij,bj->bi", G, z) - h).max())
+    out = {"shape": [B, n + nv, n + nv, 1], "launches_by_shape": shape_keys(by_shape),
+           "k1_calls_against_f64": k1, "finite": bool(np.isfinite(z).all()),
+           "feasibility_max": feas, "cpu_problems": k, "objective_rel_dev_mean": rel(z),
+           "cpu_f32_objective_rel_dev_mean": rel(z32),
+           "z_dev_max": float(np.abs(z[:k] - z64).max())}
+    log("[a] stacked QP " + json.dumps(out))
+    if not (by_shape == {(B, n + nv, 1): 31} and out["finite"] and feas <= 1e-3
+            and rel(z) <= max(2 * rel(z32), 1e-6)):
+        raise RuntimeError(f"solve_qp_batched on the card: {out}")
 
 
 def check_k1_edges(dev, rng):
@@ -596,7 +691,7 @@ def check_k1_edges(dev, rng):
     refusals = (
         (TypeError, torch.eye(4, device=dev, dtype=torch.float64)[None],
          torch.ones(1, 4, 1, device=dev, dtype=torch.float64)),
-        (ValueError, torch.eye(65, device=dev)[None], torch.ones(1, 65, 1, device=dev)),
+        (ValueError, torch.eye(129, device=dev)[None], torch.ones(1, 129, 1, device=dev)),
         (ValueError, torch.eye(64, device=dev)[None], torch.ones(1, 64, 4000, device=dev)),
     )
     for error, A, Y in refusals:
@@ -1505,7 +1600,7 @@ def phase_backends(dev, main, refs):
 
 
 PAIR_ORDER = ("bm_k1", "bm_fused", "lq_fused", "lq_fused", "bm_fused", "bm_k1")
-PAIR_STEPS = 5
+PAIR_STEPS = 2  # short, so that the whole script fits its 1,200 s limit
 
 
 def phase_pairs(runs):
@@ -1800,7 +1895,7 @@ def phase_single_solve(dev):
 # (h) the whole-body cascade, as tools/wbc_bench.py runs it: B robots, one
 # cold and WBC_TICKS chained ticks a stack
 WBC_BATCH = 512
-WBC_TICKS = 20
+WBC_TICKS = 5  # short, so that the whole script fits its 1,200 s limit
 WBC_PERIOD = 0.002
 WBC_CROSS_BATCH = 4
 EOM_BAR = 1e-2    # the level-0 EoM residual bar of tests/test_wbc_batched.py:104-130
@@ -2258,23 +2353,32 @@ def loop_states(loop, stages, carry, wrenches, cycles):
     return torch.stack(base), torch.stack(joints), carry
 
 
-def loop_cross(dev):
-    """(i) at B = 4 and LOOP_CROSS_CYCLES cycles: the card's f32 loop against
-    the port's f64 loop on the CPU, on the base pose and the joint positions
-    after each cycle (LOOP_CROSS_BARS, max abs)."""
+def loop_states_on(device_name, dtype_name):
+    """(i)'s loop at B = LOOP_CROSS_BATCH for LOOP_CROSS_CYCLES cycles on
+    `device_name` in `dtype_name`: the base pose and joint positions after
+    each cycle and the alive flags. The CPU f64 run is a spawned worker's
+    (phase_closed_loop starts it after its timings, two torch threads)."""
     import torch
 
-    out = {}
-    for name, device, dtype in (("gpu_f32", dev, torch.float32),
-                                ("cpu_f64", torch.device("cpu"), torch.float64)):
-        loop, stages, carry, wr, _ = loop_problem(device, dtype, LOOP_CROSS_BATCH,
-                                                  LOOP_CROSS_CYCLES)
-        base, joints, carry = loop_states(loop, stages, carry, wr, LOOP_CROSS_CYCLES)
-        out[name] = dict(base_pose=base, joint_q=joints, alive=carry.alive.cpu().tolist())
+    if device_name == "cpu":
+        torch.set_num_threads(2)
+    loop, stages, carry, wr, _ = loop_problem(torch.device(device_name),
+                                              getattr(torch, dtype_name), LOOP_CROSS_BATCH,
+                                              LOOP_CROSS_CYCLES)
+    base, joints, carry = loop_states(loop, stages, carry, wr, LOOP_CROSS_CYCLES)
+    return dict(base_pose=base.numpy(), joint_q=joints.numpy(), alive=carry.alive.cpu().tolist())
+
+
+def loop_cross(dev, cpu_f64):
+    """(i) at B = 4 and LOOP_CROSS_CYCLES cycles: the card's f32 loop against
+    the port's f64 loop on the CPU (`cpu_f64`, a future of
+    loop_states_on("cpu", "float64")), on the base pose and the joint
+    positions after each cycle (LOOP_CROSS_BARS, max abs)."""
+    out = {"gpu_f32": loop_states_on(str(dev), "float32"), "cpu_f64": cpu_f64.result()}
     row = {"batch": LOOP_CROSS_BATCH, "cycles": LOOP_CROSS_CYCLES, "bars": LOOP_CROSS_BARS,
            "alive": {k: v["alive"] for k, v in out.items()}}
     for key in ("base_pose", "joint_q"):
-        dev_by_cycle = (out["gpu_f32"][key] - out["cpu_f64"][key]).abs().amax(dim=(1, 2))
+        dev_by_cycle = np.abs(out["gpu_f32"][key] - out["cpu_f64"][key]).max(axis=(1, 2))
         row[f"{key}_dev_by_cycle"] = dev_by_cycle.tolist()
     log("[i] cross " + json.dumps(row))
     ok = all(all(v["alive"]) for v in out.values()) and all(
@@ -2342,7 +2446,11 @@ def phase_closed_loop(dev):
     SQP step and first WBC tick held to f64 (check_wbc_k1_calls); every
     state finite, every scenario alive, every
     base height within LOOP_HEIGHT_BAND of the nominal stance; the cross
-    check at B = 4 (loop_cross). Returns K1's row on this path."""
+    check at B = 4 (loop_cross), its CPU f64 loop in a spawned process
+    started once the timings are taken. Returns K1's row on this path."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve
@@ -2406,8 +2514,6 @@ def phase_closed_loop(dev):
     split["other"] = split["cycle"] - sum(v for k, v in split.items() if k != "cycle")
     del loop._solve, loop._control_tick, loop._physics_step
     seconds["split_cycle"], t0 = time.time() - t0, time.time()
-    prof = device_busy(lambda: loop.run(last, carry, wr[-1:]))
-    seconds["profile"], t0 = time.time() - t0, time.time()
     with k1_calls(transcription, riccati, qp, hoqp) as calls:
         loop.run(last, carry, wr[-1:])
         torch.cuda.synchronize()
@@ -2417,15 +2523,24 @@ def phase_closed_loop(dev):
     if recorded != loop_k1_expect(1)[2]:
         raise RuntimeError(f"closed loop: K1 calls of the recorded cycle by shape {recorded}, "
                            f"expected {loop_k1_expect(1)[2]}")
-    # the SQP step's 68 calls and the first WBC tick's 101 held to f64 (the
-    # other four ticks' calls are of the same shapes; all 573 took ~50 s)
-    k1 = check_wbc_k1_calls(calls[:68 + 101], "in a closed-loop cycle's solve and first tick")
-    k1["calls_by_shape"] = shape_keys(k1["calls_by_shape"])
-    seconds["k1_calls"], t0 = time.time() - t0, time.time()
     row = loop_kernel_row(calls, by_shape, LOOP_CYCLES)
-    del calls
     seconds["k1_row"], t0 = time.time() - t0, time.time()
-    cross = loop_cross(dev)
+    # no host time is taken from here on (the profile reads the card's
+    # kernel time): the cross check's CPU f64 loop runs in a spawned worker
+    # meanwhile
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_f64 = pool.submit(loop_states_on, "cpu", "float64")
+        prof = device_busy(lambda: loop.run(last, carry, wr[-1:]))
+        seconds["profile"], t0 = time.time() - t0, time.time()
+        # the SQP step's 68 calls and the first WBC tick's 101 held to f64
+        # (the other four ticks' calls are of the same shapes; all 573 took
+        # ~50 s)
+        k1 = check_wbc_k1_calls(calls[:68 + 101],
+                                "in a closed-loop cycle's solve and first tick")
+        k1["calls_by_shape"] = shape_keys(k1["calls_by_shape"])
+        del calls
+        seconds["k1_calls"], t0 = time.time() - t0, time.time()
+        cross = loop_cross(dev, cpu_f64)
     seconds["cross"] = time.time() - t0
 
     cycle_ms = 1e3 * wall / LOOP_CYCLES
@@ -2452,6 +2567,360 @@ def phase_closed_loop(dev):
                            f"height off the nominal by up to {height_dev:.4f} m "
                            f"(band {LOOP_HEIGHT_BAND})")
     return row, result, cross
+
+
+# (j) one robot: the README's entry point (sim/closed_loop.py:
+# ClosedLoopRunner) on tools/record_trace.py:canonical_trot_run's set-up,
+# held to the golden trace's first rows
+TROT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
+                           "trot_2s_trace.jsonl")
+# 360 physics steps, 180 ticks, 37 solves: past the first switch (0.35 s)
+TROT_SECONDS = 0.36
+SIDE_SECONDS = 0.01  # the separated and kalman runs: 5 ticks, the 2 solves at t = 0
+# tests/test_trace_golden.py:49-57's bands
+TROT_BANDS = {"t": 1e-9, "base_xyz": 5e-3, "base_rpy": 2e-2, "ee": 1e-2, "tau_p95": 1.0,
+              "tau_max": 20.0}
+# the bars the card's f32 run is held to: a band where the JAX package's own
+# f32 run of the same window stays inside it on the CPU, twice JAX's f32
+# deviation (rounded up) where it does not. python3 tests/torch_parity.py
+# trot-bars 0.36: JAX's f32 run against the golden's first 180 rows: base
+# xyz 1.04e-3 m, rpy 2.17e-4 rad, EE 3.41e-4 m, torques p95 0.473 Nm, max
+# 22.08 Nm (past the 20 Nm band: single ticks of the f32 polish); its f64
+# run: 3.06e-5 m, 9.53e-6 rad, 1.35e-5 m, 0.0115 Nm, 0.802 Nm
+TROT_BARS = dict(TROT_BANDS, tau_max=44.2)
+# K1's calls: a solve (the projection's node solves, then the gain solve of
+# each of the 67 nodes), a tick by stack (93 Newton solves and two
+# projectors' Gram solves, as WBC_K1_SHAPES at batch 1)
+SOLVE_K1 = {(67, 12, 18): 1, (1, 30, 31): 67}
+TICK_K1 = {"combined": {(1, 36, 1): 93, (1, 30, 36): 4, (1, 52, 36): 4},
+           "separated": {(1, 36, 1): 93, (1, 30, 36): 4, (1, 48, 36): 4}}
+PERIODS_MS = {"tick": 2.0, "solve": 10.0, "step": 1.0}  # the reference's control periods
+# the side runs against the CPU's f64 run of the same window, by group
+# (side_deviation): LOOP_CROSS_BARS where the JAX package's own f32 run
+# stays inside them against its f64 run, twice its deviation (rounded up)
+# where it does not. python3 tests/torch_parity.py side-bars 0.01: separated
+# base pose 2.6e-8, legs 1.44e-7, arm 8.9e-8; kalman 2.6e-8, 1.32e-7,
+# 1.30e-7: all inside. (Over 0.02 s the separated stack's arm leaves
+# them, 0.0453: that stack pins the arm's accelerations with nothing but
+# the cascade's regularization, and the f32 polish moves the arm within a
+# few ticks.)
+SIDE_BARS = {label: {"base_pose": LOOP_CROSS_BARS["base_pose"],
+                     "leg_q": LOOP_CROSS_BARS["joint_q"], "arm_q": LOOP_CROSS_BARS["joint_q"]}
+             for label in ("separated", "kalman")}
+SIDE_PATHS = {"separated": {"separated": True},
+              "kalman": {"estimator": "kalman", "sensor_noise": "default"}}
+
+
+def trot_runner(dev, dtype, **runner_kw):
+    """canonical_trot_run's set-up on the port: AlienGo+Z1, default_config()
+    with the legs and the arm commanded from t = 0, targets held at the
+    spawn pose (the EE pose appended), the trot template from 0 to 7 s.
+    Returns (runner, targets)."""
+    import torch
+
+    from qm_door_torch.config import default_config
+    from qm_door_torch.models import kinematics, spatial
+    from qm_door_torch.models.model import aliengo_z1
+    from qm_door_torch.ocp.gait import GAIT_LIBRARY, GaitSchedule
+    from qm_door_torch.ocp.reference import TargetTrajectories
+    from qm_door_torch.sim.closed_loop import ClosedLoopRunner
+
+    cfg = default_config()
+    cfg.controller.leg_pd_start_time = -1.0
+    cfg.wbc.arm_init_time = -1.0
+    model = aliengo_z1(dtype=dtype, device=dev)
+    x0 = torch.tensor(cfg.initial_state(), dtype=dtype, device=dev)
+    R_ee, p_ee = kinematics.ee_pose(model, x0[6:30])
+    state = torch.cat([x0, p_ee, spatial.rot_to_quat(R_ee)])
+    targets = TargetTrajectories.create(
+        torch.tensor([0.0, 1e5], dtype=dtype, device=dev), torch.stack([state, state]),
+        torch.zeros((2, 30), dtype=dtype, device=dev))
+    sched = GaitSchedule()
+    sched.insert_template(GAIT_LIBRARY["trot"], 0.0, 7.0)
+    return ClosedLoopRunner(model, cfg, schedule=sched, **runner_kw), targets
+
+
+def trot_k1_expect(solves, ticks, stack):
+    """K1's launches in `solves` solves and `ticks` ticks of a stack: by
+    variant, by (batch, n, m)."""
+    from qm_door_torch.ops.spd_solve import VARIANTS, k1_variant
+
+    by_variant, by_shape = dict.fromkeys(VARIANTS, 0), {}
+    for calls, count in ((SOLVE_K1, solves), (TICK_K1[stack], ticks)):
+        for (b, n, m), c in calls.items():
+            by_variant[k1_variant(n, m)] += c * count
+            by_shape[(b, n, m)] = by_shape.get((b, n, m), 0) + c * count
+    return by_variant, by_shape
+
+
+def golden_deviation(run_log, rows):
+    """The log's deviation from the golden's first len(run_log.t) rows, in
+    tests/test_trace_golden.py's terms (tests/torch_parity.py trot-bars
+    reads the JAX package's runs with it too)."""
+    n = len(run_log.t)
+    ref = {k: np.asarray([r[k] for r in rows[:n]]) for k in ("t", "base_pose", "tau", "ee_pos")}
+    base = np.abs(np.stack(run_log.base_pose) - ref["base_pose"])
+    tau = np.abs(np.stack(run_log.tau) - ref["tau"])
+    return {"rows": n, "t": float(np.abs(np.asarray(run_log.t) - ref["t"]).max()),
+            "base_xyz": float(base[:, 0:3].max()), "base_rpy": float(base[:, 3:6].max()),
+            "ee": float(np.abs(np.stack(run_log.ee_pos) - ref["ee_pos"]).max()),
+            "tau_p95": float(np.percentile(tau, 95)), "tau_max": float(tau.max())}
+
+
+def run_timed(runner, targets, seconds, profile_at=(20, 100), record_at=(21, 101)):
+    """One run of the runner on the card with the launch counters set to 0
+    just before and read just after: host ms of every solve, tick and
+    physics step (each call between two synchronizes), the card's busy ms
+    of the solve and the tick numbered `profile_at` (device_busy, the call
+    itself), and K1's calls of the solve and the tick numbered `record_at`
+    (k1_calls). Returns (log, result dict, recorded calls by "solve" /
+    "tick")."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.sim import closed_loop
+    from qm_door_torch.solver import projection, riccati
+    from qm_door_torch.wbc import hoqp, qp
+
+    host = {"solve": [], "tick": [], "step": []}
+    busy, recorded = {}, {}
+
+    def timed(kind, fn, modules):
+        def call(*args, **kw):
+            i = len(host[kind])
+            torch.cuda.synchronize()
+            t = time.time()
+            if i == profile_at[kind == "tick"] and kind != "step":
+                out = []
+                busy[kind] = device_busy(lambda: out.append(fn(*args, **kw)))
+                out = out[0]
+            elif i == record_at[kind == "tick"] and kind != "step":
+                with k1_calls(*modules) as calls:
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                recorded[kind] = list(calls)
+            else:
+                out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            host[kind].append(1e3 * (time.time() - t))
+            return out
+        return call
+
+    solve, tick, step = runner.solver.solve, runner.controller.tick, closed_loop.sim_step
+    runner.solver.solve = timed("solve", solve, (riccati, projection))
+    runner.controller.tick = timed("tick", tick, (qp, hoqp))
+    closed_loop.sim_step = timed("step", step, ())
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run_log = runner.run(targets, duration=seconds)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_launches()
+        by_variant = dict(spd_solve.launches_by_variant)
+        by_shape = dict(spd_solve.launches_by_shape)
+    finally:
+        closed_loop.sim_step = step
+        del runner.solver.solve, runner.controller.tick
+    # the profiled calls carry the profiler's cost: the shares use the
+    # median unprofiled host time of their kind
+    median = {k: float(np.median([ms for i, ms in enumerate(v)
+                                  if i != profile_at[k == "tick"] or k == "step"]))
+              for k, v in host.items()}
+    result = {
+        "seconds": seconds, "wall_s": wall, "safe": run_log.safe, "ticks": len(host["tick"]),
+        "solves": len(host["solve"]), "steps": len(host["step"]),
+        "host_ms_median": median,
+        "host_ms_mean": {k: float(np.mean(v)) for k, v in host.items()},
+        "host_ms_max": {k: float(np.max(v)) for k, v in host.items()},
+        "over_period": {k: median[k] / PERIODS_MS[k] for k in median},
+        "device_busy_ms": {k: v["kernel_ms"] for k, v in busy.items()},
+        "device_ops": {k: v["device_ops"] for k, v in busy.items()},
+        "device_idle_share": {k: None if v["kernel_ms"] is None
+                              else 1.0 - v["kernel_ms"] / median[k] for k, v in busy.items()},
+        "top_device_ms": {k: v["top_ms"] for k, v in busy.items()},
+        "launches": launches, "k1_by_variant": by_variant, "k1_by_shape": shape_keys(by_shape),
+        "mpc_viol_max": max(run_log.mpc_viol) if run_log.mpc_viol else None}
+    return run_log, result, recorded, by_shape
+
+
+def check_trot_launches(result, by_shape, stack, label):
+    """K1 exactly SOLVE_K1 a solve and TICK_K1[stack] a tick, by variant and
+    shape, every other kernel 0."""
+    want_variant, want_shape = trot_k1_expect(result["solves"], result["ticks"], stack)
+    total = sum(want_shape.values())
+    want = {kid: total if kid == "K1" else 0 for kid in result["launches"]}
+    if (result["launches"], result["k1_by_variant"], by_shape) != (want, want_variant,
+                                                                  want_shape):
+        raise RuntimeError(f"{label}: launches {result['launches']}, K1 by variant "
+                           f"{result['k1_by_variant']}, by shape {by_shape}; expected {want}, "
+                           f"{want_variant}, {want_shape}")
+
+
+def trot_kernel_row(recorded, by_shape, result):
+    """K1 on (j)'s path: each of the solve's and the tick's shapes timed on
+    its first recorded call (chained-call ms, the plain version's and
+    torch.linalg's ms, the bound); summed over one MPC period's work (a
+    solve and five ticks) like (i)'s row; the run's launches by shape."""
+    import torch
+
+    from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
+
+    calls = recorded["solve"] + recorded["tick"]
+    per_period = {shape: c for shape, c in SOLVE_K1.items()}
+    for shape, c in TICK_K1["combined"].items():
+        per_period[shape] = per_period.get(shape, 0) + 5 * c
+    shapes, sums = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                            bound_ms=0.0)
+    for (batch, n, m), per in per_period.items():
+        A, Y, shift, X = next(c for c in calls if tuple(c[1].shape) == (batch, n, m))
+        eye = torch.eye(n, dtype=A.dtype, device=A.device)
+        nbytes = 4 * batch * (n * (n + 1) // 2 + 2 * n * m)
+        flops = batch * (n ** 3 / 3.0 + 2.0 * n * n * m)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        row = dict(shape=[batch, n, n, m], variant=k1_variant(n, m), calls_per_mpc_period=per,
+                   launches=by_shape[(batch, n, m)],
+                   max_abs_err=(X - spd_solve_plain(A, Y, shift)).abs().max().item(),
+                   ms=cuda_ms(lambda: spd_solve(A, Y, shift), reps=50),
+                   ms_graph=graph_ms(lambda: spd_solve(A, Y, shift)),
+                   plain_ms=cuda_ms(lambda: spd_solve_plain(A, Y, shift), reps=3, warmup=1),
+                   library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                       Y, torch.linalg.cholesky_ex(A + shift * eye)[0]), reps=20),
+                   bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        for key in sums:
+            sums[key] += row[key] * per
+        log("[j] K1 " + json.dumps(row))
+        shapes.append(row)
+    return {
+        "name": "spd_solve", "route": "cuda", "source": "qm_door_torch/csrc/spd_solve.cu",
+        "replaces": "qm_door_tpu/ops/pallas_chol.py:103", "path": "one robot ClosedLoopRunner",
+        "launches": result["launches"]["K1"],
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        # one MPC period's K1 work (a solve's 68 and five ticks' 505), in
+        # chained-call events
+        **{k: sums[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
+        "shapes": shapes}
+
+
+def side_reference(runner_kw):
+    """The port's own f64 run of a side path on the CPU, for SIDE_SECONDS:
+    (base poses, joint positions (the observation's [12:30]), safe), numpy.
+    Runs in a worker process of phase_trot's, two torch threads."""
+    import torch
+
+    torch.set_num_threads(2)
+    runner, targets = trot_runner(torch.device("cpu"), torch.float64, **runner_kw)
+    ref = runner.run(targets, duration=SIDE_SECONDS)
+    return np.stack(ref.base_pose), np.stack(ref.x_obs)[:, 12:30], ref.safe
+
+
+def side_deviation(base, ref_base, joints, ref_joints):
+    """Max abs difference over every tick of the base pose (m, rad), the leg
+    joints' positions (the observation's [12:24]) and the arm joints'
+    ([24:30]); `joints` hold the observation's [12:30]."""
+    return {"base_pose": float(np.abs(base - ref_base).max()),
+            "leg_q": float(np.abs(joints[:, :12] - ref_joints[:, :12]).max()),
+            "arm_q": float(np.abs(joints[:, 12:] - ref_joints[:, 12:]).max())}
+
+
+def side_run(dev, label, reference, **runner_kw):
+    """One of (j)'s other paths for SIDE_SECONDS on the card in f32 with K1
+    counted exactly, against the port's own f64 run of the same window on
+    the CPU (`reference`, a future of side_reference's result): the base
+    pose, the leg joints and the arm joints of every tick (side_deviation)
+    within SIDE_BARS[label], both runs safe and finite. The reference runs
+    on the host meanwhile, so the run's host times are printed, not
+    reported."""
+    import torch
+
+    runner, targets = trot_runner(dev, torch.float32, **runner_kw)
+    run_log, result, _, by_shape = run_timed(runner, targets, SIDE_SECONDS,
+                                             profile_at=(-1, -1), record_at=(-1, -1))
+    stack = "separated" if runner_kw.get("separated") else "combined"
+    check_trot_launches(result, by_shape, stack, f"(j) {label}")
+    ref_base, ref_joints, ref_safe = reference.result()
+    base, joints = np.stack(run_log.base_pose), np.stack(run_log.x_obs)[:, 12:30]
+    same_rows = base.shape == ref_base.shape
+    bars = SIDE_BARS[label]
+    dev_ = side_deviation(base, ref_base, joints, ref_joints) if same_rows else dict.fromkeys(
+        bars)
+    finite = all(np.isfinite(np.stack(getattr(run_log, k))).all()
+                 for k in ("base_pose", "x_obs", "tau", "ee_pos"))
+    result.update(label=label, cross_dev=dev_, bars=bars, finite=finite, cpu_refs_alongside=True,
+                  cpu_f64_safe=bool(ref_safe), rows=len(run_log.t), cpu_rows=len(ref_base))
+    log("[j] " + json.dumps(result))
+    if not (run_log.safe and ref_safe and finite and same_rows
+            and all(dev_[k] <= bar for k, bar in bars.items())):
+        raise RuntimeError(f"(j) {label}: safe {run_log.safe} / {ref_safe}, finite {finite}, "
+                           f"rows {len(run_log.t)} / {len(ref_base)}, card f32 off the CPU's "
+                           f"f64 by {dev_} (bars {bars})")
+    return result
+
+
+def trot_check(run_log, rows, label, bars=TROT_BARS):
+    """The run safe, finite, every tick's row present with t equal to the
+    golden's, and each deviation within its bar; returns the deviations."""
+    dev_ = golden_deviation(run_log, rows)
+    finite = all(np.isfinite(np.stack(getattr(run_log, k))).all()
+                 for k in ("base_pose", "x_obs", "tau", "ee_pos"))
+    ok = run_log.safe and finite and dev_["rows"] == len(rows) and all(
+        dev_[k] <= bar for k, bar in bars.items())
+    line = {"label": label, "safe": run_log.safe, "finite": finite, "deviation": dev_,
+                "bars": bars, "bands": TROT_BANDS}
+    log(f"[j] {label} against the golden " + json.dumps(line))
+    if not ok:
+        raise RuntimeError(f"(j) {label} against the golden: {json.dumps(line)}")
+    return line
+
+
+def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
+    """(j) the README's entry point on the card: ClosedLoopRunner on the
+    canonical trot in f32 for `seconds` (every solve, tick and step timed
+    between synchronizes; one solve and one tick profiled and their K1
+    calls held to f64), held to the golden's first rows (TROT_BARS), K1
+    exactly SOLVE_K1 a solve and TICK_K1 a tick; then (side) the separated
+    and kalman paths (side_run), their CPU f64 references computed
+    meanwhile in two spawned processes (side_reference), started once the
+    trot's timings are taken. Returns K1's row on this path, the trot's
+    result and the side runs' results."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    rows = [json.loads(line) for line in open(TROT_GOLDEN)][:int(round(seconds / 0.002))]
+    row, result = trot_main(dev, seconds, rows, bars)
+    if not side:
+        return row, result, {}
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {label: pool.submit(side_reference, kw) for label, kw in SIDE_PATHS.items()}
+        sides = {label: side_run(dev, label, refs[label], **kw)
+                 for label, kw in SIDE_PATHS.items()}
+    return row, result, sides
+
+
+def trot_main(dev, seconds, rows, bars):
+    """(j)'s trot window: the run, its launches, the golden, the K1 calls and
+    K1's row. Returns (row, result)."""
+    import torch
+
+    t0 = time.time()
+    runner, targets = trot_runner(dev, torch.float32)
+    log_, result, recorded, by_shape = run_timed(runner, targets, seconds)
+    check_trot_launches(result, by_shape, "combined", "(j) trot")
+    log("[j] trot host ms " + json.dumps({k: result[k] for k in (
+        "wall_s", "ticks", "solves", "steps", "host_ms_median", "host_ms_mean",
+        "device_idle_share")}))
+    golden = trot_check(log_, rows, "trot", bars)
+    k1 = {"solve": check_k1_calls(recorded["solve"], "in a (j) solve"),
+          "tick": check_wbc_k1_calls(recorded["tick"], "in a (j) tick")}
+    k1["tick"]["calls_by_shape"] = shape_keys(k1["tick"]["calls_by_shape"])
+    row = trot_kernel_row(recorded, by_shape, result)
+    result.update(golden=golden, k1_calls_against_f64=k1, impl="torch", dtype="float32",
+                  device=torch.cuda.get_device_name(0), phase_s=time.time() - t0)
+    log("[j] trot " + json.dumps(result))
+    return row, result
 
 
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
@@ -2509,6 +2978,7 @@ def main():
     _, ft_rows = phase("g", phase_force_tracking, dev, refs)
     wbc_rows = phase("h", phase_wbc, dev)
     loop_row, _, _ = phase("i", phase_closed_loop, dev)
+    trot_row, _, _ = phase("j", phase_trot, dev)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -2574,6 +3044,9 @@ def main():
     # (i)'s path, the batched closed loop: K1 a cycle, with the launches of
     # (i)'s timed cycles
     kernels.append(loop_row)
+    # (j)'s path, one robot: K1 an MPC period (a solve and five ticks), with
+    # the launches of (j)'s trot window
+    kernels.append(trot_row)
     log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     log(card)

@@ -10,6 +10,11 @@ reference that ``tests/test_torch_*.py`` hold this package against.
 - ``ocp``      : costs, penalties, constraints, gait/swing, stage data.
 - ``solver``   : batched SQP iteration (linearize -> project -> Riccati -> linesearch).
 - ``parallel`` : BatchedMpc, B scenarios in lock-step.
+- ``wbc``      : the whole-body QP cascade, batch-major and for one robot.
+- ``sim``      : physics, terrains and walls, the batched closed loop and
+                 one robot's (``sim.closed_loop.ClosedLoopRunner``).
+- ``runtime``  : the policy bridge, the safety check, the controller tick.
+- ``estimation``: ground-truth and Kalman-filter state estimation.
 - ``ops``      : hand-written CUDA kernels with their plain torch versions.
 - ``convert``  : JAX-package objects (as numpy) -> this package's objects.
 

@@ -40,8 +40,10 @@
 //   f32 (TF32 keeps 10 of f32's 23 mantissa bits; reduced-precision operands
 //   break the Cholesky/Riccati chain, docs/PERF.md:307-309).
 //
-// smem (n <= 64, any m whose system fits a block's shared memory; the WBC
-//   shapes n = 36/42, m = 1 and the 58 x 58 Gram solve): one warp per
+// smem (n <= 128, any m whose system fits a block's shared memory; the WBC
+//   shapes n = 36/42, m = 1, the 58 x 58 Gram solve and the stacked
+//   interior-point systems of wbc/qp.py:solve_qp_batched, n + nv up to 92
+//   with m = 1, 34.6 KB a system): one warp per
 //   system, several systems per block. The warp stages the system's lower
 //   triangle (+ shift on the diagonal) and its Y in dynamic shared memory
 //   with coalesced loads, factors in place (right-looking, lanes across
@@ -80,7 +82,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxN = 64;
+constexpr int kMaxN = 128;
 constexpr int kMaxSystemsPerBlock = 4;
 constexpr int kRegMaxM = 64;      // two right-hand-side columns a lane
 constexpr int kRegBlockWarps = 4;  // warps a block for large batches

@@ -12,18 +12,21 @@ and :func:`k1_variant` picks one from the shape alone:
   (25728 x 12 x 49, bytes-bound; reg16 walks the batch and stages the
   next system while it solves this one) and the Riccati gain (384 x 30 x
   31, latency-bound; reg32 gives each system its own warp).
-- ``smem`` (any other n <= 64, as long as one system fits a block's shared
-  memory): the system staged in shared memory, a right-looking Cholesky,
-  one lane per right-hand-side column. The WBC shapes (n = 36/42 with m = 1,
-  the 58 x 58 Gram solve) take it.
+- ``smem`` (any other n <= 128, :data:`MAX_N`, as long as one system fits a
+  block's shared memory): the system staged in shared memory, a
+  right-looking Cholesky, one lane per right-hand-side column; its loops
+  stride by lanes and do not depend on n. The WBC shapes (n = 36/42 with
+  m = 1, the 58 x 58 Gram solve) and the stacked interior-point systems of
+  ``wbc/qp.py:solve_qp_batched`` (n + nv up to 92, m = 1: 34.6 KB) take it.
 
 All read only the lower triangle of A (both solver call sites pass exactly
 symmetric matrices) and use the pivots rsqrt(max(a_kk, 1e-30)); the source
 note has the design and what bounds each shape.
 
 :func:`spd_solve` launches the chosen variant for CUDA tensors (f32,
-n <= 64) and raises for anything it cannot take; nothing is chosen because
-a build or a launch failed. CPU tensors run :func:`spd_solve_plain`, the
+n <= 128) and raises for anything it cannot take (n > 128, or a system too
+large for a block's shared memory); nothing is chosen because a build or a
+launch failed, and no system is ever run short. CPU tensors run :func:`spd_solve_plain`, the
 same algorithm as batched torch ops. :func:`spd_solve_ll` (K1-ll) is the
 same solve on lanes-last arrays, through the same dispatch with other
 strides. Each wrapper counts its launches in ``.launches``, by variant in
@@ -37,7 +40,7 @@ import torch
 
 from .cuda_build import check_launch, load, on_cuda
 
-MAX_N = 64
+MAX_N = 128
 
 
 def spd_solve_plain(A, Y, shift: float = 0.0):
@@ -86,7 +89,7 @@ VARIANTS = ("reg16", "reg32", "smem")
 def k1_variant(n: int, m: int) -> str:
     """The K1 variant for systems of n x n with m right-hand sides: "reg16"
     for n <= 16, "reg32" for 16 < n <= 32, both only for m <= 64; "smem"
-    for everything else (n <= 64)."""
+    for everything else (n <= MAX_N = 128)."""
     if m <= REG_MAX_M:
         if n <= 16:
             return "reg16"
@@ -151,7 +154,7 @@ def spd_solve(A, Y, shift: float = 0.0, _variant=None):
 
     A: (B, n, n); Y: (B, n, m), both contiguous, same device and dtype.
     CUDA tensors go to the K1 variant :func:`k1_variant` picks (float32,
-    n <= 64), counted in ``spd_solve.launches``,
+    n <= 128), counted in ``spd_solve.launches``,
     ``spd_solve.launches_by_variant`` and ``spd_solve.launches_by_shape``;
     CPU tensors go to :func:`spd_solve_plain`. ``_variant`` forces a
     variant (to time one beside another on the card); the solver never
@@ -183,7 +186,7 @@ def spd_solve_ll(At, Yt, shift: float = 0.0):
     """K1-ll: the same solve on lanes-last arrays (port of
     ``pallas_chol.py:spd_solve_ll``): At (n, n, B), Yt (n, m, B) -> (n, m, B).
 
-    CUDA tensors (contiguous float32, n <= 64, any B) enter the variant
+    CUDA tensors (contiguous float32, n <= 128, any B) enter the variant
     :func:`k1_variant` picks with batch stride 1 and element stride B,
     counted in ``spd_solve_ll.launches``, ``.launches_by_variant`` and
     ``.launches_by_shape``; CPU tensors take :func:`spd_solve_plain` on the

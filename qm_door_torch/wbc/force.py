@@ -1,5 +1,5 @@
-"""Force-aware hierarchical WBC, batch-major (port of the batched half of
-qm_door_tpu/wbc/force.py): the decision variables widen 36 -> 42 with the
+"""Force-aware hierarchical WBC, batch-major (port of
+qm_door_tpu/wbc/force.py; the single-robot tick is a batch of one): the decision variables widen 36 -> 42 with the
 EE wrench,
 
     x (42) = [qddot (24); F_feet (12); W_ee (6)],
@@ -117,3 +117,22 @@ def hierarchical_wbc_ft_batched(model: RobotModel, wbc_cfg, state_desired, input
     x_opt = solve_hierarchy_batched(tasks, qp_iters=qp_iters)
     tau = compute_torque_ft(data, x_opt)
     return torch.cat([x_opt, tau], dim=-1), WbcState(input_last=input_desired)
+
+
+def hierarchical_wbc_ft(model: RobotModel, wbc_cfg, state_desired, input_desired, rbd_measured,
+                        contact_flags, grasp, wbc_state: WbcState, period, qp_iters=None,
+                        wrench_priority: int = 0):
+    """One robot's force-tracking WBC tick: input_desired (36,), grasp a
+    number or a 0-d tensor gating the wrench tracking; ``wrench_priority``
+    0 (the wrench pinned at level 0, with the EoM) or 2 (beside the
+    contact-force task). Returns (cmd (60,) = [qdd; F; W; tau], new
+    WbcState)."""
+    if wrench_priority not in (0, 2):
+        raise ValueError(f"wrench_priority must be 0 (pinned with the EoM) or 2 (legacy "
+                         f"contact-force slot), got {wrench_priority!r}")
+    g = torch.as_tensor(grasp, dtype=state_desired.dtype, device=state_desired.device)
+    cmd, _ = hierarchical_wbc_ft_batched(
+        model, wbc_cfg, state_desired[None], input_desired[None], rbd_measured[None],
+        contact_flags[None], g.reshape(1), WbcState(input_last=wbc_state.input_last[None]),
+        period, qp_iters=qp_iters, wrench_priority=wrench_priority)
+    return cmd[0], WbcState(input_last=input_desired)

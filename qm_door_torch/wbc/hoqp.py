@@ -1,5 +1,5 @@
-"""Hierarchical QP cascade, batch-major (port of the batched half of
-qm_door_tpu/wbc/hoqp.py; HoQp replacement, Bellicoso et al. 2016).
+"""Hierarchical QP cascade (port of qm_door_tpu/wbc/hoqp.py; HoQp
+replacement, Bellicoso et al. 2016).
 
 Each priority level solves
 
@@ -12,7 +12,11 @@ processed so far (a masked SPD Gram solve, no SVD); the directions Z
 removes are pinned by the complementary projector in H. Every leaf of a
 :class:`Task` carries a leading batch axis, and every SPD solve (the level
 QPs' Newton systems and the projectors' Gram systems) is one batched call
-to K1 (``ops/spd_solve.py``).
+to K1 (``ops/spd_solve.py``). The single-problem forms
+(:func:`null_projector`, :func:`solve_hierarchy`) are the batched ones on
+a batch of one; ``nullspace="svd"`` takes the null-space basis from an SVD
+(:func:`null_space_masked`, torch.linalg, as the JAX package uses
+jnp.linalg.svd there) instead of the projector.
 """
 from __future__ import annotations
 
@@ -83,10 +87,50 @@ def null_projector_batched(A, ridge=None):
     return torch.where(ok[:, None, None], P, P_safe)
 
 
-def solve_hierarchy_batched(tasks: Sequence[Task], qp_iters: int = 30):
+def null_projector(A, ridge=None):
+    """Orthogonal projector onto null(A), A (m,n) -> (n,n): one element of
+    :func:`null_projector_batched`. The JAX package computes the safe ridge
+    only when the thin one gives a non-finite projector (lax.cond); here
+    both are computed and the safe one selected where needed, so the values
+    are the same and every projector makes the same 4 solves."""
+    return null_projector_batched(A[None], ridge)[0]
+
+
+def null_space_masked(M, rel_tol=None):
+    """Full-width (..., n, n) null-space basis of M (..., m, n) from an SVD:
+    the right singular vectors whose singular value is at most rel_tol of
+    the largest (or of 1) are kept, the row-space columns are exactly zero,
+    so the shape stays static."""
+    if rel_tol is None:
+        rel_tol = 1e-5 if M.dtype == torch.float32 else 1e-9
+    _, sv, Vh = torch.linalg.svd(M, full_matrices=True)
+    n, k = M.shape[-1], sv.shape[-1]
+    tol = rel_tol * torch.clamp(torch.amax(sv, dim=-1, keepdim=True), min=1.0)
+    live = torch.cat([sv > tol, torch.zeros(*sv.shape[:-1], n - k, dtype=torch.bool,
+                                            device=M.device)], dim=-1)
+    return Vh.transpose(-1, -2) * (1.0 - live.to(M.dtype))[..., None, :]
+
+
+def solve_hierarchy(tasks: Sequence[Task], qp_iters: int = 30, null_tol=None,
+                    nullspace: str = "projector"):
+    """Solve one problem's priority cascade (Task leaves without a batch
+    axis), highest priority first, as a batch of one of
+    :func:`solve_hierarchy_batched`. Returns x (n,)."""
+    return solve_hierarchy_batched([Task(*(t[None] for t in task)) for task in tasks],
+                                   qp_iters=qp_iters, null_tol=null_tol, nullspace=nullspace)[0]
+
+
+def solve_hierarchy_batched(tasks: Sequence[Task], qp_iters: int = 30, null_tol=None,
+                            nullspace: str = "projector"):
     """Solve the priority cascade, highest priority first; every Task leaf
     carries a leading batch axis (A (B,r,n), b (B,r), D (B,q,n), f (B,q)).
-    Returns x (B,n)."""
+    Returns x (B,n).
+
+    ``nullspace``: "projector" (:func:`null_projector_batched`, on K1) or
+    "svd" (:func:`null_space_masked` with ``null_tol``; its dead columns
+    are pinned by a unit diagonal on the columns it zeroed)."""
+    if nullspace not in ("projector", "svd"):
+        raise ValueError(f"nullspace={nullspace!r}: expected 'projector' or 'svd'")
     B, _, n = tasks[0].A.shape
     dtype, dev = tasks[0].A.dtype, tasks[0].A.device
     x = torch.zeros((B, n), dtype=dtype, device=dev)
@@ -100,10 +144,13 @@ def solve_hierarchy_batched(tasks: Sequence[Task], qp_iters: int = 30):
         nv = D.shape[1]
         AZ = A @ Z
         AZT = AZ.transpose(-1, -2)
-        # dead directions = range of the processed equality rows: pin their
-        # coordinates with the complementary projector
         H_zz = AZT @ AZ
-        if level > 0:
+        if nullspace == "svd":
+            col_live = (torch.linalg.norm(Z, dim=-2) > 1e-8).to(dtype)     # (B,n)
+            H_zz = H_zz + torch.diag_embed(1.0 - col_live)
+        elif level > 0:
+            # dead directions = range of the processed equality rows: pin
+            # their coordinates with the complementary projector
             H_zz = H_zz + (eye_n[None] - Z)
         H_zz = H_zz + h_reg * eye_n[None]
         c_z = fmv(AZT, fmv(A, x) - b)
@@ -128,7 +175,8 @@ def solve_hierarchy_batched(tasks: Sequence[Task], qp_iters: int = 30):
             prev_ineq.append((D, f + v))
         if level < len(tasks) - 1:
             stacked_A = torch.cat([t.A for t in tasks[: level + 1]], dim=1)
-            Z = null_projector_batched(stacked_A)
+            Z = (null_projector_batched(stacked_A) if nullspace == "projector"
+                 else null_space_masked(stacked_A, rel_tol=null_tol))
     return x
 
 

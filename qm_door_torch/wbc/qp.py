@@ -1,5 +1,6 @@
-"""The level QP of the whole-body cascade (port of the batch-major
-``solve_qp_slack_batched`` of qm_door_tpu/wbc/qp.py).
+"""The QPs of the whole-body cascade (port of qm_door_tpu/wbc/qp.py): the
+level QP ``solve_qp_slack_batched`` the cascade runs, and the stacked dense
+QP ``solve_qp_batched`` / ``solve_qp`` it is equivalent to.
 
     min_{z,v}  1/2 z'Hz z + cz'z + 1/2 v'v
     s.t.       G1 z - v <= h1        (level inequalities, slacked)
@@ -12,8 +13,9 @@ keep their iterate through ``torch.where`` masks, so the loop never reads a
 value back to the host. The IP Newton system's slack block is diagonal and
 eliminated analytically, so each iteration is one batched n x n SPD solve on
 K1 (``ops/spd_solve.py``; n = 36 on the nominal stack, 42 with the wrench).
-The stacked [z; v] form of the JAX package's ``solve_qp_batched`` is not
-ported: its only callers are tests, and it would need K1 beyond n = 64.
+The stacked form ``solve_qp_batched`` (min 1/2 z'Hz + c'z s.t. Gz <= h,
+with the slacks as variables) solves (n + nv)-sized Newton systems on K1:
+92 x 92 at the production level sizes, inside K1's n <= 128.
 """
 from __future__ import annotations
 
@@ -58,6 +60,80 @@ def _finite(*ts):
         f = torch.isfinite(t).all(dim=-1)
         ok = f if ok is None else ok & f
     return ok
+
+
+def solve_qp_batched(H, c, G, h, iters: int = 30):
+    """Solve min 1/2 z'Hz + c'z s.t. Gz <= h for each element of a batch:
+    H (B,n,n) positive definite, c (B,n), G (B,m,n), h (B,m), m >= 1.
+    Returns (z, lam, s), each with the leading batch axis.
+
+    The same interior point as :func:`solve_qp_slack_batched` without the
+    slack elimination: Jacobi equilibration (variable scaling from diag(H),
+    constraint rows normalized), each iteration's (n, n) Newton system on
+    K1, the freeze at mu_tol, and in float32 the active-set polish, kept
+    only where finite and feasible to 1e-4 in the original units (the
+    returned slack then matches the polished primal; lam stays the
+    interior point's)."""
+    B, n, _ = H.shape
+    m = G.shape[1]
+    dtype = H.dtype
+    f32 = dtype == torch.float32
+    mu_tol = 1e-5 if f32 else 1e-10
+    tiny = 1e-25 if f32 else 1e-300
+    w_max = 1e6 if f32 else 1e12
+    jitter = 1e-6 if f32 else 1e-11
+
+    dH = torch.diagonal(H, dim1=-2, dim2=-1)
+    d = 1.0 / torch.sqrt(torch.clamp(dH, min=1e-8))
+    H = H * d[:, :, None] * d[:, None, :]
+    c = c * d
+    Gd = G * d[:, None, :]
+    e = 1.0 / torch.clamp(torch.linalg.norm(Gd, dim=-1), min=1.0)
+    G = Gd * e[..., None]
+    h = h * e
+    GT = G.transpose(-1, -2)
+
+    z = torch.zeros((B, n), dtype=dtype, device=H.device)
+    s = torch.ones((B, m), dtype=dtype, device=H.device)
+    lam = torch.ones((B, m), dtype=dtype, device=H.device)
+    for _ in range(iters):
+        mu = torch.sum(lam * s, dim=-1) / m
+        proceed = mu > mu_tol
+        target = (0.1 * mu)[:, None]
+        r_d = fmv(H, z) + c + fmv(GT, lam)
+        r_p = fmv(G, z) + s - h
+        s_safe = torch.clamp(s, min=tiny)
+        w = torch.clamp(lam / s_safe, 0.0, w_max)
+        M = H + GT @ (w[..., None] * G)
+        rhs = -r_d - fmv(GT, target / s_safe - lam + w * r_p)
+        dz = _spd_solve_batched(M, rhs, jitter)
+        ds = -r_p - fmv(G, dz)
+        dlam = target / s_safe - lam - w * ds
+        alpha = torch.clamp(torch.minimum(_max_step(s, ds), _max_step(lam, dlam)), max=1.0)
+        ok = (proceed & _finite(dz, ds, dlam))[:, None]
+        a = alpha[:, None]
+        z = torch.where(ok, z + a * dz, z)
+        s = torch.where(ok, s + a * ds, s)
+        lam = torch.where(ok, lam + a * dlam, lam)
+
+    if f32:
+        act = (lam > s).to(dtype) * 1e6
+        Mp = H + GT @ (act[..., None] * G)
+        z_p = _spd_solve_batched(Mp, -c + fmv(GT, act * h), jitter)
+        resid = fmv(G, z_p) - h
+        viol = _max_last(resid / torch.clamp(e, min=tiny))
+        ok_p = (_finite(z_p) & (viol < 1e-4))[:, None]
+        z = torch.where(ok_p, z_p, z)
+        s = torch.where(ok_p, -resid, s)
+
+    return d * z, e * lam, s / torch.clamp(e, min=tiny)
+
+
+def solve_qp(H, c, G, h, iters: int = 30):
+    """One problem of :func:`solve_qp_batched` (H (n,n), c (n,), G (m,n),
+    h (m,)), as a batch of one. Returns (z, lam, s)."""
+    z, lam, s = solve_qp_batched(H[None], c[None], G[None], h[None], iters=iters)
+    return z[0], lam[0], s[0]
 
 
 def solve_qp_slack_batched(Hz, cz, G1, h1, Gp, hp, iters: int = 30):

@@ -50,7 +50,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "qm_door_torch.wbc.force", "qm_door_torch.sim.terrain",
                  "qm_door_torch.sim.world", "qm_door_torch.sim.sim",
                  "qm_door_torch.sim.batched_rollout", "qm_door_torch.runtime.mrt",
-                 "qm_door_torch.runtime.safety"):
+                 "qm_door_torch.runtime.safety", "qm_door_torch.runtime.controller",
+                 "qm_door_torch.estimation.base", "qm_door_torch.estimation.kalman",
+                 "qm_door_torch.sim.closed_loop"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -1,7 +1,8 @@
 """K1's variant dispatch (qm_door_torch/ops/spd_solve.py:k1_variant): the
 register variants take the main path's shapes, the shared-memory kernel the
-WBC shapes, and the boundaries fall where the kernel source's note puts
-them (reg16 for n <= 16, reg32 for n <= 32, both for m <= REG_MAX_M = 64).
+WBC shapes and the stacked interior-point systems (n <= MAX_N = 128), and
+the boundaries fall where the kernel source's note puts them (reg16 for
+n <= 16, reg32 for n <= 32, both for m <= REG_MAX_M = 64).
 On the CPU nothing launches: no variant is counted. The variants
 themselves run only on the card, where chip_smoke.py holds each against
 the f64 plain solve."""
@@ -25,9 +26,13 @@ def test_wbc_shapes_take_the_shared_memory_kernel(n, m):
 @pytest.mark.parametrize("n, m, variant", [
     (1, 1, "reg16"), (16, 1, "reg16"), (17, 1, "reg32"), (32, 1, "reg32"), (33, 1, "smem"),
     (64, 1, "smem"), (12, 64, "reg16"), (12, 65, "smem"), (30, 64, "reg32"),
-    (30, 65, "smem"), (17, 33, "reg32"), (16, 64, "reg16"), (32, 64, "reg32")])
+    (30, 65, "smem"), (17, 33, "reg32"), (16, 64, "reg16"), (32, 64, "reg32"),
+    # past the old n <= 64 bound: the stacked interior-point systems of
+    # wbc/qp.py:solve_qp_batched reach n + nv = 92
+    (65, 1, "smem"), (92, 1, "smem"), (128, 1, "smem")])
 def test_boundaries(n, m, variant):
     assert k1.REG_MAX_M == 64
+    assert k1.MAX_N == 128
     assert k1.k1_variant(n, m) == variant
 
 
@@ -53,3 +58,18 @@ def test_cpu_tensors_count_no_variant():
     for counts in by_variant:
         assert set(counts) == set(k1.VARIANTS)
         assert all(type(v) is int and v == 0 for v in counts.values())
+
+
+def test_plain_solve_at_the_stacked_shape_matches_float64():
+    """The plain version (what CPU tensors run) at the stacked interior-point
+    system's 92 x 92 x 1, in float32 against numpy's float64 solve of the
+    same system: n > 64 needs no other code path."""
+    rng = np.random.default_rng(92)
+    A, Y = _spd(rng, 2, 92, 1)
+    X = k1.spd_solve(torch.as_tensor(A, dtype=torch.float32),
+                     torch.as_tensor(Y, dtype=torch.float32), 1e-6)
+    ref = np.linalg.solve(A + 1e-6 * np.eye(92), Y)
+    assert X.dtype == torch.float32 and X.shape == (2, 92, 1)
+    np.testing.assert_allclose(X.double().numpy(), ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    X64 = k1.spd_solve(torch.as_tensor(A), torch.as_tensor(Y), 1e-6)
+    np.testing.assert_allclose(X64.numpy(), ref, rtol=1e-10, atol=1e-12)
