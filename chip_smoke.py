@@ -11,28 +11,30 @@ Phases:
   (a) kernels: builds K1 (the SPD solve) and holds the variant its
       dispatch picks (reg16 at the projection shape, reg32 at the gain
       shape; at the six shapes of the whole-body cascade at B = 512,
-      (h)'s WBC_K1_SHAPES, smem but reg32 at 30 x 30 x 36) against its
-      plain torch version and an f64 plain solve, on SPD inputs of
-      condition ~1e3 (pass: max relative error <= 1e-4); where a register
-      variant runs, also the
-      smem kernel on the same inputs, the two timed in turns (smem, reg,
-      reg, smem), each with CUDA events over chained calls (`ms`, as every
-      kernel) and in a CUDA graph (`ms_graph`), beside the plain version
-      and torch.linalg (cholesky + cholesky_solve); checks ragged batches
-      (half-filled blocks), the per-scenario solve's shapes (67 x 12 x 18,
-      1 x 30 x 31), n = 1,
-      16, 17, 32, 33 and 64, m = 64 and 65, odd RHS widths, a shift, a
-      misaligned base, NaN above the diagonal (never read), that each goes
-      to the variant k1_variant names, and that the wrapper refuses
-      float64, n > 128 (n = 129) and too much shared memory. Past the old
-      n <= 64 bound, the smem kernel at 512 x 65 x 65 x 1, 512 x 92 x 92 x
-      1 (wbc/qp.py:solve_qp_batched's stacked Newton systems) and 512 x
-      128 x 128 x 1, held and timed as the path's shapes.
+      (h)'s WBC_K1_SHAPES, reg64 but reg32 at 30 x 30 x 36; blk128 at
+      512 x 65 / 92 / 128 x 1; reg64 at the door's batch-1 shapes 1 x 42 x
+      1, 1 x 36 x 42, 1 x 58 x 42, 1 x 36 x 31) against its plain torch
+      version and an f64 plain solve, on SPD inputs of condition ~1e3
+      (pass: max relative error <= 1e-4); at every shape also PR 1's
+      kernel (variant smem, only ever forced) on the same inputs, the two
+      timed in turns (smem, new, new, smem), each with CUDA events over
+      chained calls (`ms`, as every kernel) and in a CUDA graph
+      (`ms_graph`), beside the plain version and torch.linalg (cholesky +
+      cholesky_solve); checks ragged batches (one and several systems a
+      block, half-filled blocks, reg64 past one wave), the per-scenario
+      solve's shapes (67 x 12 x 18, 1 x 30 x 31), n = 1, 16 | 17, 32 | 33,
+      48 | 49, 64 | 65 and 128, m = 1 | 2, 64 | 65, 100 and 4000, odd RHS
+      widths, a shift, a misaligned base with NaN above the diagonal
+      (never read) on each variant, that each goes to the variant
+      k1_variant names, and that the wrapper refuses float64, n > 128
+      (n = 129) and, on PR 1's kernel, a system too large for its shared
+      memory. 512 x 92 x 92 x 1 is wbc/qp.py:solve_qp_batched's stacked
+      Newton systems.
   (b) main path: BatchedMpc at B = 384, N = 67 (AlienGo+Z1 trot,
       lin_tangents="analytic_bf16", sensitivity="frozen", 2 linesearch
       candidates, seed-0 perturbations x 0.02): one cold step and 20 warm
       steps, per-stage host times, K1 launches (exactly 68 a step: 67
-      reg32 + 1 reg16, no smem), mean
+      reg32 + 1 reg16, no other variant), mean
       violation <= 1e-5; then each stage and one step once more under
       torch.profiler for device busy time, device op count and the card's
       idle share of a step (after the timed steps, so they carry no
@@ -68,7 +70,8 @@ Phases:
       recipe, each through the variant sweep_variant names (reg, reg,
       reg with two solving warps, smem) and within 1e-3 of the f64 plain
       sweep; K1-ll (lanes-last K1, through K1's dispatch: reg32 at
-      384 x 30 x 31) against spd_solve_plain with ragged batches;
+      384 x 30 x 31) against spd_solve_plain with ragged batches, reg64
+      by rows and by columns and blk128 among them;
       each new wrapper refuses float64 and a non-contiguous input.
   (e) backends: BatchedMpc(backend="bm_fused") and ("lq_fused") driven as
       (b) drives bm_k1 (one cold and 20 warm steps, exact launches a step:
@@ -84,11 +87,12 @@ Phases:
       widened (grasp from t >= 0.3 s, wrench reference [4, 0, -9, 0, 0,
       0.4]) and U from weight_compensating_input_ft; bm_k1 and bm_fused
       driven as (b) drives bm_k1 (exact launches a step: bm_k1 K1 68 = 1
-      reg16 + 67 smem; bm_fused K1 1 reg16 + K2 1 smem), mean violation <=
+      reg16 + 67 reg64; bm_fused K1 1 reg16 + K2 1 smem), mean violation <=
       1e-5, the off-grasp wrench exactly 0, per-stage host ms and the card's
-      idle share, and (c)'s cross-precision check for each; K1's smem
+      idle share, and (c)'s cross-precision check for each; K1's reg64
       variant at 384 x 36 x 31 (node 0's gain system at the warm iterate,
-      within 1e-4 of f64) and K2's smem variant at 384 x 67 x 30 x 36
+      within 1e-4 of f64; timed in turns against PR 1's kernel) and K2's
+      smem variant at 384 x 67 x 30 x 36
       (within 1e-3 of f64), each timed beside its bound and its plain
       version (K1 also beside torch.linalg); the other options on bm_k1
       with the launches checked: lin_tangents f32 and bf16 a cold and 20
@@ -104,7 +108,7 @@ Phases:
       variables, and wbc/force.py:hierarchical_wbc_ft_batched, 42, with the
       wrench) as tools/wbc_bench.py runs them: B = 512 in f32, one cold and
       5 chained ticks (xs += 1e-9 * cmd[:, :30]) a stack, K1 exactly 101
-      launches a tick, by variant (nominal 97 smem + 4 reg32, ft 101 smem)
+      launches a tick, by variant (nominal 97 reg64 + 4 reg32, ft 101 reg64)
       and by shape (93 Newton, 4 + 4 Gram), ticks/s, host ms and device
       busy ms a tick, the card's idle share; every K1 call of one tick
       held to spd_solve_plain in f64 (backward error <= 1e-4 and forward
@@ -128,7 +132,7 @@ Phases:
       the wall time, host ms a cycle by part (solve, WBC ticks, physics
       steps; one more cycle, each part ended by a synchronize), device busy
       ms and the card's idle share of one cycle, K1 exactly 573 launches a
-      cycle (by variant: reg16 1, reg32 87, smem 485; by shape), the K1
+      cycle (by variant: reg16 1, reg32 87, reg64 485; by shape), the K1
       calls of one cycle's SQP step and first WBC tick held to f64 (as
       (h)), the alive count; held: every
       state finite, all 1024 alive, every base within 5 cm of the stance
@@ -297,7 +301,9 @@ def build_all():
     of the sweep kernel and the measuring and diagnostic builds of K3a/K3b
     and K3d, one nvcc each, all started together; log each one's ptxas
     report (kept from the build when a library is reused) and fail unless
-    it shows the four K1 register kernels, the four sweep kernels (K2/K3c x
+    it shows the four K1 reg16 / reg32 kernels, the four reg64 kernels
+    (rows padded to 48 / 64 x solved by rows / columns), the blk128 kernel,
+    the four sweep kernels (K2/K3c x
     reg/smem), the four K3a/K3b kernels (x bulk/4-byte copies) and the two
     K3d kernels (bulk/4-byte copies) of the normal build without spills.
     The phase-clock builds' spills are logged: their cycle counts carry
@@ -320,7 +326,9 @@ def build_all():
         for line in out.splitlines():
             log(f"nvcc {' -D'.join((name,) + defines)}: {line}")
     for label, lib, kernel, count in (
-            ("K1 register variants", ("spd_solve", ()), "spd_reg_kernel", 4),
+            ("K1 reg16 / reg32", ("spd_solve", ()), "spd_reg_kernel", 4),
+            ("K1 reg64", ("spd_solve", ()), "spd_reg64_kernel", 4),
+            ("K1 blk128", ("spd_solve", ()), "spd_blk128_kernel", 1),
             ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel", 4),
             ("K3a/K3b kernels", ("lq_project", ()), "project_", 4),
             ("K3d kernels", ("lq_forward", ()), "forward_kernel", 2)):
@@ -518,6 +526,8 @@ def phase_kernels(dev):
     # K1's range past n = 64: the stacked interior-point systems of
     # wbc/qp.py:solve_qp_batched (n + nv = 92) and the bound's ends
     shapes += [(label, WBC_BATCH, n, 1, 0) for label, n in K1_RANGE_SHAPES]
+    # the door's force-tracking tick and nu = 36 gain at batch 1
+    shapes += [(label, 1, n, m, 0) for label, n, m in K1_DOOR_SHAPES]
     rows = []
     for label, batch, n, m, per_step in shapes:
         A64, Y64 = spd_batch(rng, batch, n, m)
@@ -541,17 +551,16 @@ def phase_kernels(dev):
         # ms: 50 chained calls through the wrapper between two CUDA events, as
         # every kernel is timed (the wrapper's host time bounds it when that
         # exceeds the kernel's); ms_graph: the same 50 calls in a CUDA graph,
-        # the kernel with no host in the loop
-        turns = (variant,) if variant == "smem" else ("smem", variant, variant, "smem")
-        if variant != "smem":  # the smem kernel on the same inputs, in turns
-            _, row["rel_err_smem"], _ = k1_run(A, Y, X_ref, label, variant="smem")
+        # the kernel with no host in the loop; PR 1's kernel (smem) on the
+        # same inputs, in turns
+        turns = ("smem", variant, variant, "smem")
+        _, row["rel_err_smem"], _ = k1_run(A, Y, X_ref, label, variant="smem")
         calls = {v: (lambda v=v: spd_solve(A, Y, _variant=v)) for v in turns}
         row["ms_turns"], events = in_turns(calls, turns, chained(50))
         row["ms_graph_turns"], graph = in_turns(calls, turns, graph_ms)
         ms = events[variant]
         row["ms_graph"] = graph[variant]
-        if variant != "smem":
-            row.update(ms_smem=events["smem"], ms_smem_graph=graph["smem"])
+        row.update(ms_smem=events["smem"], ms_smem_graph=graph["smem"])
         plain_ms = cuda_ms(lambda: spd_solve_plain(A, Y), reps=5, warmup=1)
         lib_ms = cuda_ms(lambda: torch.cholesky_solve(Y, torch.linalg.cholesky(A)), reps=20)
         # the kernel reads A's lower triangle and Y once, writes X once
@@ -569,9 +578,13 @@ def phase_kernels(dev):
 
 
 K1_RANGE_SHAPES = (("range_65", 65), ("stacked_qp_92", 92), ("range_128", 128))
+# the door's batch-1 K1 shapes (force tracking, 42 variables): the Newton
+# solve, the two Gram solves and the nu = 36 gain
+K1_DOOR_SHAPES = (("door_newton", 42, 1), ("door_gram0", 36, 42), ("door_gram1", 58, 42),
+                  ("door_gain", 36, 31))
 # wbc/qp.py:solve_qp_batched on the stacked form of a level QP at the WBC's
 # sizes (n = 36 variables, nv = 56 slacked inequalities: n + nv = 92, K1's
-# smem variant past the old n <= 64 bound), B = 512
+# blk128 variant), B = 512
 STACKED_QP = {"batch": 512, "n": 36, "nv": 56, "mp": 8}
 STACKED_QP_CPU = 32  # the problems also solved on the CPU (f64 and f32), and
 # those of each K1 call held to f64
@@ -586,6 +599,13 @@ K1_EDGES = (  # batch, n, m, shift
     (4 * 1000 + 2, 12, 49, 0.0), (40003, 12, 49, 0.0), (3 * 1031 + 1, 30, 31, 0.0),
     # (g)'s SqpSolver.solve: the projection's node solves and a one-system gain
     (67, 12, 18, 0.0), (1, 30, 31, 0.0),
+    # reg64 and blk128: n = 48 | 49 (reg64's row padding 48 | 64), 64 | 65,
+    # m = 1 | 2, m past 64 (columns from device memory), one and several
+    # systems a block, ragged blocks, the loop's 1024 x 36 x 1 and a batch
+    # past one wave with a ragged last wave
+    (5, 48, 1, 0.0), (6, 49, 1, 1e-3), (7, 64, 2, 0.0), (3, 65, 1, 0.0), (1, 40, 1, 0.0),
+    (2, 36, 2, 1e-3), (1, 64, 4000, 0.0), (3, 50, 100, 0.0), (1, 52, 36, 0.0),
+    (1026, 36, 1, 0.0), (1024, 36, 1, 1e-5), (5003, 36, 1, 0.0), (1, 128, 1, 0.0),
 )
 
 
@@ -655,10 +675,12 @@ def check_stacked_qp(dev, rng):
 def check_k1_edges(dev, rng):
     """K1 off the main shapes, each through the variant k1_variant names:
     ragged batches (one and several systems a block, half-filled blocks, a
-    ragged grid stride), n = 1, 16, 17, 32, 33 and 64, m = 64 and 65, RHS
-    widths around the 32-lane stride, a shift; then each variant on a
-    misaligned base with NaN above the diagonal (never read); and the
-    launches it must refuse."""
+    ragged grid stride, reg64 past one wave), n = 1, 16 | 17, 32 | 33,
+    48 | 49, 64 | 65 and 128, m = 1 | 2, 64 | 65, 100 and 4000, RHS widths
+    around the 32-lane stride, a shift; then each variant (reg64 by rows and
+    by columns, from shared and from device memory) on a misaligned base
+    with NaN above the diagonal (never read); and the launches it must
+    refuse."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_plain
@@ -679,7 +701,8 @@ def check_k1_edges(dev, rng):
         out.copy_(t)
         return out
 
-    for batch, n, m in ((13, 12, 49), (13, 30, 31), (13, 40, 3)):
+    for batch, n, m in ((13, 12, 49), (13, 30, 31), (13, 40, 3), (13, 40, 1), (13, 50, 70),
+                        (13, 92, 1)):
         A64, Y64 = spd_batch(rng, batch, n, m)
         X_ref = spd_solve_plain(torch.tensor(A64, device=dev), torch.tensor(Y64, device=dev))
         A = torch.tensor(A64, dtype=torch.float32, device=dev)
@@ -688,19 +711,24 @@ def check_k1_edges(dev, rng):
                                                                       device=dev)),
                                X_ref, f"misaligned, NaN above the diagonal ({batch},{n},{m})")
         ran[f"misaligned_nan_upper_{batch}x{n}x{m}"] = variant
+    # reg64 and blk128 read the right-hand sides past 64 columns from device
+    # memory, so no n <= 128 outgrows their shared memory; PR 1's kernel
+    # (forced) still stages the whole system and must refuse 64 x 4000
     refusals = (
         (TypeError, torch.eye(4, device=dev, dtype=torch.float64)[None],
-         torch.ones(1, 4, 1, device=dev, dtype=torch.float64)),
-        (ValueError, torch.eye(129, device=dev)[None], torch.ones(1, 129, 1, device=dev)),
-        (ValueError, torch.eye(64, device=dev)[None], torch.ones(1, 64, 4000, device=dev)),
+         torch.ones(1, 4, 1, device=dev, dtype=torch.float64), None),
+        (ValueError, torch.eye(129, device=dev)[None], torch.ones(1, 129, 1, device=dev), None),
+        (ValueError, torch.eye(64, device=dev)[None], torch.ones(1, 64, 4000, device=dev),
+         "smem"),
     )
-    for error, A, Y in refusals:
+    for error, A, Y, variant in refusals:
         try:
-            spd_solve(A, Y)
+            spd_solve(A, Y, _variant=variant)
         except error:
             continue
-        raise RuntimeError(f"K1 took ({tuple(A.shape)}, {tuple(Y.shape)}, {A.dtype}), "
-                           f"which it must refuse with {error.__name__}")
+        raise RuntimeError(f"K1 took ({tuple(A.shape)}, {tuple(Y.shape)}, {A.dtype}) on "
+                           f"{variant or 'its dispatch'}, which it must refuse with "
+                           f"{error.__name__}")
     log(f"[a] K1 edge cases (variant each ran) and refusals: ok {json.dumps(ran)}")
 
 
@@ -1498,10 +1526,12 @@ def phase_new_kernels(dev, main):
     check_forward_cases(dev)
 
     # K1-ll: lanes-last SPD solves at the gain shape, then ragged batches;
-    # each through the variant K1's dispatch names (reg32, reg16, smem)
+    # each through the variant K1's dispatch names (reg32, reg16, reg64 by
+    # columns and by rows, blk128)
     rng = np.random.default_rng(1)
     ll_variants = {}
-    for batch, n, m, s_ll in ((BATCH, 30, 31, 0.0), (1001, 12, 49, 1e-3), (7, 64, 3, 0.0)):
+    for batch, n, m, s_ll in ((BATCH, 30, 31, 0.0), (1001, 12, 49, 1e-3), (7, 64, 3, 0.0),
+                              (50, 36, 1, 1e-3), (9, 92, 1, 0.0)):
         before = dict(spd_solve_ll.launches_by_variant)
         A64, Y64 = spd_batch(rng, batch, n, m)
         At = torch.tensor(A64, dtype=torch.float32, device=dev).permute(1, 2, 0).contiguous()
@@ -1524,7 +1554,8 @@ def phase_new_kernels(dev, main):
         if ran != {k1_variant(n, m)}:
             raise RuntimeError(f"K1-ll ({n},{m},{batch}) ran {ran}, not {k1_variant(n, m)}")
         ll_variants[f"{n}x{m}x{batch}"] = k1_variant(n, m)
-    log(f"[d] K1-ll ragged batches (1001 x 12 x 49 with a shift, 7 x 64 x 3): ok; variants "
+    log(f"[d] K1-ll ragged batches (1001 x 12 x 49 and 50 x 36 x 1 with a shift, 7 x 64 x 3, "
+        f"9 x 92 x 1): ok; variants "
         f"{json.dumps(ll_variants)}")
 
     # every new wrapper refuses float64 and a non-contiguous input on the card
@@ -1668,9 +1699,9 @@ def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", **problem):
 
 
 # launches a step of the force-tracking problem (nu = 36): the gain solves
-# go to K1's smem variant (n = 36 > 32), the sweep to K2's smem variant
+# go to K1's reg64 variant (n = 36 > 32), the sweep to K2's smem variant
 FT_EXPECT = {
-    "bm_k1": ({"K1": 68}, {"reg16": 1, "smem": 67}, {}),
+    "bm_k1": ({"K1": 68}, {"reg16": 1, "reg64": 67}, {}),
     "bm_fused": ({"K1": 1, "K2": 1}, {"reg16": 1}, {"K2": {"smem": 1}}),
 }
 OPTION_WARM_STEPS = 2
@@ -1691,7 +1722,7 @@ OPTIONS = {
 def phase_force_tracking(dev, refs):
     """(g) force tracking at full width: bm_k1 and bm_fused driven as (b)
     drives bm_k1, the off-grasp wrench exactly 0, per-stage host ms and the
-    card's idle share, (c)'s cross-precision check for each; K1's smem
+    card's idle share, (c)'s cross-precision check for each; K1's reg64
     variant at the gain shape and K2's smem variant on (g)'s warm iterate;
     the other options; one SqpSolver.solve cold and warm. Returns the two
     runs and the two kernel rows."""
@@ -1724,7 +1755,7 @@ def phase_force_tracking(dev, refs):
         log("[g] " + json.dumps(result))
         phase_cross_precision(dev, refs, backend, "g", force_tracking=True)
         seconds[f"split_cross_{backend}"], t0 = time.time() - t0, time.time()
-    rows["K1_smem"] = ft_gain_kernel(runs["bm_k1"])
+    rows["K1_gain"] = ft_gain_kernel(runs["bm_k1"])
     rows["K2_smem"] = ft_sweep_kernel(runs["bm_fused"])
     seconds["kernels"], t0 = time.time() - t0, time.time()
     phase_options(dev, refs)
@@ -1736,11 +1767,12 @@ def phase_force_tracking(dev, refs):
 
 
 def ft_gain_kernel(run):
-    """K1's smem variant at the force-tracking gain shape (384 x 36 x 31:
+    """K1's reg64 variant at the force-tracking gain shape (384 x 36 x 31:
     Quu 36 x 36, the right-hand sides [Qux, Qu], nx + 1 columns),
     on node 0's gain system of the sweep at (g)'s bm_k1 warm iterate: held
     against the f64 plain solve, timed in chained calls and in a CUDA graph
-    beside its bound, its plain version and torch.linalg."""
+    beside its bound, its plain version and torch.linalg, and in turns
+    (smem, reg64, reg64, smem) in a CUDA graph against PR 1's kernel."""
     import torch
 
     from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
@@ -1751,22 +1783,25 @@ def ft_gain_kernel(run):
         riccati.lqr_solve_batched(plq, run["x_batch"] - run["X"][:, 0])
     A, Y = calls[-1][:2]
     batch, n, m = Y.shape
-    if (batch, n, m) != (BATCH, 36, 31) or k1_variant(n, m) != "smem":
+    if (batch, n, m) != (BATCH, 36, 31) or k1_variant(n, m) != "reg64":
         raise RuntimeError(f"K1 at the nu = 36 gain: shape {(batch, n, m)}, variant "
                            f"{k1_variant(n, m)}")
     ref = spd_solve_plain(A.double(), Y.double())
     nbytes = 4 * batch * (n * (n + 1) // 2 + 2 * n * m)
     flops = batch * (n ** 3 / 3.0 + 2.0 * n * n * m)
-    row, _ = kernel_row("K1", "spd_solve smem, nu = 36 gain", lambda A, Y: (spd_solve(A, Y),),
+    row, _ = kernel_row("K1", "spd_solve reg64, nu = 36 gain", lambda A, Y: (spd_solve(A, Y),),
                         lambda A, Y: (spd_solve_plain(A, Y),), [A, Y], [ref], K1_REL_TOL,
-                        nbytes, flops, reps=50, tag="g", variant="smem",
+                        nbytes, flops, reps=50, tag="g", variant="reg64",
                         calls_per_step=len(calls))
-    row["ms_graph"] = graph_ms(lambda: spd_solve(A, Y))
+    calls = {v: (lambda v=v: spd_solve(A, Y, _variant=v)) for v in ("smem", "reg64")}
+    row["ms_graph_turns"], graph = in_turns(calls, ("smem", "reg64", "reg64", "smem"), graph_ms)
+    row.update(ms_graph=graph["reg64"], ms_smem_graph=graph["smem"])
     row["library_ms"] = cuda_ms(lambda: torch.cholesky_solve(Y, torch.linalg.cholesky(A)),
                                 reps=20)
-    row["launches"] = run["k1_variants"]["smem"]
-    log("[g] K1 smem at the nu = 36 gain: " + json.dumps(
-        {k: row[k] for k in ("ms", "ms_graph", "plain_ms", "library_ms", "bound_ms", "launches")}))
+    row["launches"] = run["k1_variants"]["reg64"]
+    log("[g] K1 reg64 at the nu = 36 gain: " + json.dumps(
+        {k: row[k] for k in ("ms", "ms_graph", "ms_smem_graph", "plain_ms", "library_ms",
+                             "bound_ms", "launches")}))
     return row
 
 
@@ -1863,7 +1898,8 @@ def phase_single_solve(dev):
             launches = read_launches()
             by_variant = dict(spd_solve.launches_by_variant)
         want = {kid: 68 * iters if kid == "K1" else 0 for kid in launches}
-        want_v = {"reg16": iters, "reg32": 67 * iters, "smem": 0}
+        want_v = dict.fromkeys(spd_solve.launches_by_variant, 0)
+        want_v.update(reg16=iters, reg32=67 * iters)
         ok = bool(torch.isfinite(new.X).all() and torch.isfinite(new.U).all())
         if (launches != want or by_variant != want_v or len(calls) != launches["K1"] or not ok
                 or not float(new.step_size) > 0):
@@ -2876,7 +2912,7 @@ def trot_check(run_log, rows, label, bars=TROT_BARS):
     return line
 
 
-def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
+def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS, k1=True):
     """(j) the README's entry point on the card: ClosedLoopRunner on the
     canonical trot in f32 for `seconds` (every solve, tick and step timed
     between synchronizes; one solve and one tick profiled and their K1
@@ -2885,12 +2921,14 @@ def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
     and kalman paths (side_run), their CPU f64 references computed
     meanwhile in two spawned processes (side_reference), started once the
     trot's timings are taken. Returns K1's row on this path, the trot's
-    result and the side runs' results."""
+    result and the side runs' results. `k1` False: the caller has put
+    spd_solve_plain in K1's place (trot_2s.py --k1-plain), so nothing
+    checks or times K1 and the row is None."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     rows = [json.loads(line) for line in open(TROT_GOLDEN)][:int(round(seconds / 0.002))]
-    row, result = trot_main(dev, seconds, rows, bars)
+    row, result = trot_main(dev, seconds, rows, bars, k1)
     if not side:
         return row, result, {}
     with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2900,14 +2938,21 @@ def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
     return row, result, sides
 
 
-def trot_main(dev, seconds, rows, bars):
+def trot_main(dev, seconds, rows, bars, k1=True):
     """(j)'s trot window: the run, its launches, the golden, the K1 calls and
-    K1's row. Returns (row, result)."""
+    K1's row (with `k1` False only the run and the golden). Returns (row,
+    result)."""
     import torch
 
     t0 = time.time()
     runner, targets = trot_runner(dev, torch.float32)
     log_, result, recorded, by_shape = run_timed(runner, targets, seconds)
+    if not k1:
+        golden = trot_check(log_, rows, "trot (K1 replaced by spd_solve_plain)", bars)
+        result.update(golden=golden, impl="torch, K1 replaced by spd_solve_plain",
+                      dtype="float32", device=torch.cuda.get_device_name(0),
+                      phase_s=time.time() - t0)
+        return None, result
     check_trot_launches(result, by_shape, "combined", "(j) trot")
     log("[j] trot host ms " + json.dumps({k: result[k] for k in (
         "wall_s", "ticks", "solves", "steps", "host_ms_median", "host_ms_mean",
@@ -3019,10 +3064,10 @@ def main():
             kernels[-1].update({k: r[k] for k in (  # other variant and phase clocks
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",
                 "phase_clock_build_spills")}, launches_by_variant=sweep_by_variant[kid])
-    # (g)'s path, force tracking: K1's smem variant on bm_k1's gain solves and
+    # (g)'s path, force tracking: K1's reg64 variant on bm_k1's gain solves and
     # K2's smem variant on bm_fused, with the launches of (g)'s driven runs
     for r, (name, source, replaces), path in (
-            (ft_rows["K1_smem"], ("spd_solve", "qm_door_torch/csrc/spd_solve.cu",
+            (ft_rows["K1_gain"], ("spd_solve", "qm_door_torch/csrc/spd_solve.cu",
                                   "qm_door_tpu/ops/pallas_chol.py:103"), "force_tracking bm_k1"),
             (ft_rows["K2_smem"], KERNELS["K2"], "force_tracking bm_fused")):
         kernels.append({
@@ -3030,7 +3075,8 @@ def main():
             "variant": r["variant"], "path": path, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "rel_err": r["rel_err"], "bytes": r["bytes"], "flops": r["flops"]})
+            "rel_err": r["rel_err"], "bytes": r["bytes"], "flops": r["flops"],
+            **{k: r[k] for k in ("ms_graph", "ms_smem_graph") if k in r}})
     # (h)'s path, the whole-body cascade: K1 at each of its shapes, with the
     # launches of (h)'s chained ticks
     for r in wbc_rows:

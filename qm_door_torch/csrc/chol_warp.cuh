@@ -38,6 +38,28 @@
 //                        float4 chunks inside each step (no col[NP] /
 //                        row[NP]) and 1 / L_ii from the chunk that holds the
 //                        diagonal.
+//
+// Two rows a lane, for 32 < n <= NP with NP in {48, 64} (spd_solve.cu's
+// reg64 variant): lane i holds row i in a0[32] (a row below 32 has no
+// entries past column 31) and row i + 32 in a1[NP].
+//   load_rows2()         load_rows() for both rows.
+//   factor2()            factor_lean()'s pivots over the two rows: column k
+//                        comes by shuffles from the lanes that hold rows
+//                        j >= k, each value straight into both rows' updates.
+//                        Each lane ends with 1 / L_ii of its two rows, the
+//                        reciprocal of the factor's diagonal (so a clamped
+//                        pivot solves as the reference's division does).
+//   store_rows2()        L by rows, odd row stride (the m = 1 back sweep).
+//   solve_rows2()        L L^T x = y for one right-hand side held by rows:
+//                        step i forms x_i on row i's lane, broadcasts it by
+//                        one shuffle, and every lane updates its two rows
+//                        (forward from a0 / a1 in registers, back from the
+//                        rows in shared memory): 2n steps of one shuffle and
+//                        two FMAs.
+//   store_factor2_lean() store_factor_lean() for the two rows.
+//   solve_cols()         solve_lean() at NP = 48 / 64, steps past n
+//                        skipped (one column a lane: two put z[2][64] in
+//                        local memory).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -320,6 +342,234 @@ __device__ __forceinline__ void solve_lean(float (&z)[NP], const float* sLt, con
       }
     }
   }
+}
+
+// --- two rows a lane (see the note at the top) -------------------------------
+
+// static_for<N>(f) calls f(Int<0>{}), ..., f(Int<N - 1>{}) as straight-line
+// code. The two-row routines below generate their pivots and substitution
+// steps this way: at NP = 48 / 64 a fully unrolled nest of them passes the
+// compiler's unrolling threshold, stays a loop, and indexes the register
+// arrays at run time (local memory).
+template <int K>
+struct Int {
+  static constexpr int value = K;
+};
+
+template <int N, int K = 0, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (K < N) {
+    f(Int<K>{});
+    static_for<N, K + 1>(f);
+  }
+}
+
+// Lane i takes rows i (a0) and i + 32 (a1) of the staged A (row stride n,
+// lower triangle only, + shift on the diagonal). Rows n..NP-1 are identity
+// rows, rows past NP (a1 on lanes >= NP - 32) zeros; entries above the
+// diagonal start at 0.
+template <int NP>
+__device__ __forceinline__ void load_rows2(float (&a0)[kWarp], float (&a1)[NP], const float* sA,
+                                           int n, float shift, int lane) {
+  const int r1 = lane + kWarp;
+#pragma unroll
+  for (int j = 0; j < kWarp; ++j) {
+    float v = (lane < n && j <= lane) ? sA[lane * n + j] : 0.0f;
+    if (j == lane) v = lane < n ? v + shift : 1.0f;
+    a0[j] = v;
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    float v = (r1 < n && j <= r1) ? sA[r1 * n + j] : 0.0f;
+    if (j == r1) v = r1 < n ? v + shift : 1.0f;
+    a1[j] = v;
+  }
+}
+
+// 1 / x to within about half an ulp: the hardware's approximate reciprocal
+// and one Newton step (no call to the IEEE division's slow path, which
+// would save every live register around it). 0 -> inf, inf -> 0.
+__device__ __forceinline__ float recip(float x) {
+  const float r = __fdividef(1.0f, x);
+  return r + r == r ? r : fmaf(r, fmaf(-x, r, 1.0f), r);
+}
+
+// In place: a0[j] = L[i][j] (j <= i) and a1[j] = L[i + 32][j] (j <= i + 32)
+// on lane i; ivd0 / ivd1 = 1 / L of the two rows' diagonals (1 on rows past
+// NP). Pivot k as the reference forms it: inv = rsqrt(max(A_kk, 1e-30)),
+// L_ik = A_ik inv, A_ij -= L_ik L_jk with L_jk = A_jk inv formed from the
+// shuffled A_jk on every lane (off the pivot-to-pivot chain).
+template <int NP>
+__device__ __forceinline__ void factor2(float (&a0)[kWarp], float (&a1)[NP], float& ivd0,
+                                        float& ivd1, int lane) {
+  float d0 = 1.0f, d1 = 1.0f;  // the two rows' L_ii, caught as their pivots pass
+  static_for<NP>([&](auto kc) {
+    constexpr int k = decltype(kc)::value;
+    constexpr int k0 = k < kWarp ? k : 0;
+    const float c0 = k < kWarp ? a0[k0] : 0.0f;  // A_ik of row i
+    const float c1 = a1[k];                      // A_ik of row i + 32
+    const float inv =
+        rsqrtf(fmaxf(__shfl_sync(kFull, k < kWarp ? c0 : c1, k % kWarp), 1e-30f));
+    const float l0 = c0 * inv, l1 = c1 * inv;
+#pragma unroll
+    for (int j = k + 1; j < NP; ++j) {
+      const float ljk = __shfl_sync(kFull, j < kWarp ? c0 : c1, j % kWarp) * inv;  // L_jk
+      if (j < kWarp) a0[j < kWarp ? j : 0] = fmaf(-l0, ljk, a0[j < kWarp ? j : 0]);
+      a1[j] = fmaf(-l1, ljk, a1[j]);
+    }
+    if (k < kWarp) {
+      a0[k0] = l0;
+      d0 = lane == k ? l0 : d0;
+    }
+    a1[k] = l1;
+    d1 = lane + kWarp == k ? l1 : d1;
+  });
+  ivd0 = recip(d0);
+  ivd1 = recip(d1);
+}
+
+// Row stride of store_rows2's layout: odd, so the lanes' row stores fall on
+// distinct banks.
+template <int NP>
+__host__ __device__ constexpr int rows2_stride() { return NP + 1; }
+
+template <int NP>
+__host__ __device__ constexpr int rows2_floats() { return NP * rows2_stride<NP>(); }
+
+// sL[i * (NP + 1) + j] = L[i][j] for the rows a lane holds (row i < 32 up to
+// column 31; entries above the diagonal are scratch and never used).
+template <int NP>
+__device__ __forceinline__ void store_rows2(const float (&a0)[kWarp], const float (&a1)[NP],
+                                            float* sL, int lane) {
+  constexpr int ld = rows2_stride<NP>();
+#pragma unroll
+  for (int j = 0; j < kWarp; ++j) sL[lane * ld + j] = a0[j];
+  if (lane + kWarp < NP) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) sL[(lane + kWarp) * ld + j] = a1[j];
+  }
+}
+
+// L L^T x = y for one right-hand side held by rows: y0 is row `lane`, y1 row
+// lane + 32 (zero past n). Forward: at step i the lane of row i forms
+// z_i = y_i / L_ii and broadcasts it; every lane takes L_ri z_i off its rows
+// r > i (L_ri from a0 / a1). Back: x_i = z_i / L_ii from row i's lane; every
+// lane takes L_ir x_i off its rows r < i (row i of L from sL, store_rows2's
+// layout; lanes read consecutive words). Steps past n change nothing and are
+// skipped (n is the same on every lane).
+template <int NP>
+__device__ __forceinline__ void solve_rows2(float& y0, float& y1, const float (&a0)[kWarp],
+                                            const float (&a1)[NP], float ivd0, float ivd1,
+                                            const float* sL, int n, int lane) {
+  constexpr int ld = rows2_stride<NP>();
+  static_for<NP>([&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    if (i < n) {
+      const float zi = __shfl_sync(kFull, i < kWarp ? y0 * ivd0 : y1 * ivd1, i % kWarp);
+      if (i < kWarp) {
+        y0 = lane == i ? zi : (lane > i ? fmaf(-a0[i < kWarp ? i : 0], zi, y0) : y0);
+        y1 = fmaf(-a1[i], zi, y1);
+      } else {
+        y1 = lane + kWarp == i ? zi : (lane + kWarp > i ? fmaf(-a1[i], zi, y1) : y1);
+      }
+    }
+  });
+  static_for<NP>([&](auto kc) {
+    constexpr int i = NP - 1 - decltype(kc)::value;
+    if (i < n) {
+      const float xi = __shfl_sync(kFull, i < kWarp ? y0 * ivd0 : y1 * ivd1, i % kWarp);
+      const float* row = sL + i * ld;
+      if (i < kWarp) {
+        const float l = lane < i ? row[lane] : 0.0f;
+        y0 = lane == i ? xi : (lane < i ? fmaf(-l, xi, y0) : y0);
+      } else {
+        const float l1 = lane + kWarp < i ? row[lane + kWarp] : 0.0f;
+        y1 = lane + kWarp == i ? xi : (lane + kWarp < i ? fmaf(-l1, xi, y1) : y1);
+        y0 = fmaf(-row[lane], xi, y0);
+      }
+    }
+  });
+}
+
+// store_factor_lean() for the two rows a lane holds: sLt[j * NP + i] = L[i][j]
+// (columns) and sL[i * row_stride + j] = L[i][j] (rows), 1 / L_ii on both
+// diagonals. Entries above the diagonal are not written (solve_cols never
+// uses them).
+template <int NP>
+__device__ __forceinline__ void store_factor2_lean(const float (&a0)[kWarp], const float (&a1)[NP],
+                                                   float ivd0, float ivd1, float* sLt, float* sL,
+                                                   int lane) {
+  constexpr int rs = row_stride<NP>();
+  const int r1 = lane + kWarp;
+#pragma unroll
+  for (int j = 0; j < kWarp; ++j) sLt[j * NP + lane] = a0[j];
+  float4* row0 = reinterpret_cast<float4*>(sL + lane * rs);
+#pragma unroll
+  for (int q = 0; q < kWarp / 4; ++q)
+    row0[q] = make_float4(a0[4 * q], a0[4 * q + 1], a0[4 * q + 2], a0[4 * q + 3]);
+  sLt[lane * NP + lane] = ivd0;
+  sL[lane * rs + lane] = ivd0;
+  if (r1 < NP) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) sLt[j * NP + r1] = a1[j];
+    float4* row1 = reinterpret_cast<float4*>(sL + r1 * rs);
+#pragma unroll
+    for (int q = 0; q < NP / 4; ++q)
+      row1[q] = make_float4(a1[4 * q], a1[4 * q + 1], a1[4 * q + 2], a1[4 * q + 3]);
+    sLt[r1 * NP + r1] = ivd1;
+    sL[r1 * rs + r1] = ivd1;
+  }
+}
+
+// solve_lean() for the column z a lane holds, on store_factor2_lean()'s
+// layout; steps past n are skipped (rows >= n of z are zero and stay zero).
+template <int NP>
+__device__ __forceinline__ void solve_cols(float (&z)[NP], const float* sLt, const float* sL,
+                                           int n) {
+  // forward: z_i *= 1/L_ii, z_r -= L_ri z_i (r > i); column i of L from sLt
+  static_for<NP>([&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    constexpr int qd = i / 4;  // the chunk that holds the diagonal
+    if (i < n) {
+      const float4* col = reinterpret_cast<const float4*>(sLt + i * NP);
+      const float4 v = col[qd];
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      const float zi = z[i] * w[i % 4];
+      z[i] = zi;
+#pragma unroll
+      for (int e = i % 4 + 1; e < 4; ++e) z[4 * qd + e] = fmaf(-w[e], zi, z[4 * qd + e]);
+#pragma unroll
+      for (int q = qd + 1; q < NP / 4; ++q) {
+        const float4 u = col[q];
+        z[4 * q] = fmaf(-u.x, zi, z[4 * q]);
+        z[4 * q + 1] = fmaf(-u.y, zi, z[4 * q + 1]);
+        z[4 * q + 2] = fmaf(-u.z, zi, z[4 * q + 2]);
+        z[4 * q + 3] = fmaf(-u.w, zi, z[4 * q + 3]);
+      }
+    }
+  });
+  // back: x_i = z_i / L_ii, z_r -= L_ir x_i (r < i); row i of L from sL
+  static_for<NP>([&](auto kc) {
+    constexpr int i = NP - 1 - decltype(kc)::value;
+    constexpr int qd = i / 4;
+    if (i < n) {
+      const float4* row = reinterpret_cast<const float4*>(sL + i * row_stride<NP>());
+      const float4 v = row[qd];  // the chunk with the diagonal first
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      const float xi = z[i] * w[i % 4];
+      z[i] = xi;
+#pragma unroll
+      for (int e = 0; e < i % 4; ++e) z[4 * qd + e] = fmaf(-w[e], xi, z[4 * qd + e]);
+#pragma unroll
+      for (int q = 0; q < qd; ++q) {
+        const float4 u = row[q];
+        z[4 * q] = fmaf(-u.x, xi, z[4 * q]);
+        z[4 * q + 1] = fmaf(-u.y, xi, z[4 * q + 1]);
+        z[4 * q + 2] = fmaf(-u.z, xi, z[4 * q + 2]);
+        z[4 * q + 3] = fmaf(-u.w, xi, z[4 * q + 3]);
+      }
+    }
+  });
 }
 
 }  // namespace chol_warp

@@ -50,12 +50,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _flags(defines) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+# flags of one library only: K1's source holds ten kernels, several of them
+# long straight-line code, and builds in about half the time when nvcc
+# optimizes them in parallel
+LIBRARY_FLAGS = {"spd_solve": ("--split-compile=0",)}
+
+
+def _flags(defines, name: str = "") -> tuple:
+    return NVCC_FLAGS + LIBRARY_FLAGS.get(name, ()) + tuple(f"-D{d}" for d in defines)
 
 
 def _library_path(name: str, defines=()) -> str:
-    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
+    digest = hashlib.sha256(" ".join(_flags(defines, name)).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -87,7 +93,7 @@ def build(name: str, defines=()) -> str:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *_flags(defines), "-o", tmp,
+        proc = subprocess.run([nvcc, *_flags(defines, name), "-o", tmp,
                                os.path.join(CSRC, f"{name}.cu")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:

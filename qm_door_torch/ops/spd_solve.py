@@ -2,8 +2,8 @@
 
 Replaces the Pallas TPU kernel ``qm_door_tpu/ops/pallas_chol.py:spd_solve``
 (``_spd_kernel``). The CUDA source is ``qm_door_torch/csrc/spd_solve.cu``
-with the warp routines of ``csrc/chol_warp.cuh``; it holds three variants,
-and :func:`k1_variant` picks one from the shape alone:
+with the warp routines of ``csrc/chol_warp.cuh``; :func:`k1_variant` picks
+one of four variants from the shape alone:
 
 - ``reg16`` (n <= 16) and ``reg32`` (n <= 32), both for m <= 64
   (:data:`REG_MAX_M`, two right-hand-side columns a lane): one warp a
@@ -12,12 +12,22 @@ and :func:`k1_variant` picks one from the shape alone:
   (25728 x 12 x 49, bytes-bound; reg16 walks the batch and stages the
   next system while it solves this one) and the Riccati gain (384 x 30 x
   31, latency-bound; reg32 gives each system its own warp).
-- ``smem`` (any other n <= 128, :data:`MAX_N`, as long as one system fits a
-  block's shared memory): the system staged in shared memory, a
-  right-looking Cholesky, one lane per right-hand-side column; its loops
-  stride by lanes and do not depend on n. The WBC shapes (n = 36/42 with
-  m = 1, the 58 x 58 Gram solve) and the stacked interior-point systems of
-  ``wbc/qp.py:solve_qp_batched`` (n + nv up to 92, m = 1: 34.6 KB) take it.
+- ``reg64`` (every other n <= 64: 32 < n, or m > 64): one warp a system,
+  two rows a lane in registers (padded to 48 or 64), the factor's columns
+  moved by shuffles. At m = 1 (the WBC's Newton solves, 36 / 42 x 1) the
+  right-hand side stays held by rows and each substitution step is one
+  shuffle and two FMAs; at m > 1 (the nu = 36 gain, 36 x 31; the WBC's Gram
+  solves, 52 x 36, 36 / 58 x 42) the columns go over lanes, 32 at a time.
+  Latency-bound: one system's chain is the kernel's time.
+- ``blk128`` (64 < n <= :data:`MAX_N` = 128): a block of 8 warps a system, a
+  blocked Cholesky with 32-column panels in shared memory, the
+  substitutions a right-hand side a warp. Only the stacked interior-point
+  systems of ``wbc/qp.py:solve_qp_batched`` (n + nv up to 92, m = 1, a test
+  reference) reach it.
+
+A fifth, ``smem``, is PR 1's kernel: :func:`k1_variant` never names it, and
+it runs only when ``_variant="smem"`` forces it, to be timed in turns
+against the variants that replaced it (``chip_smoke.py`` (a)).
 
 All read only the lower triangle of A (both solver call sites pass exactly
 symmetric matrices) and use the pivots rsqrt(max(a_kk, 1e-30)); the source
@@ -25,12 +35,15 @@ note has the design and what bounds each shape.
 
 :func:`spd_solve` launches the chosen variant for CUDA tensors (f32,
 n <= 128) and raises for anything it cannot take (n > 128, or a system too
-large for a block's shared memory); nothing is chosen because a build or a
-launch failed, and no system is ever run short. CPU tensors run :func:`spd_solve_plain`, the
-same algorithm as batched torch ops. :func:`spd_solve_ll` (K1-ll) is the
-same solve on lanes-last arrays, through the same dispatch with other
-strides. Each wrapper counts its launches in ``.launches``, by variant in
-``.launches_by_variant`` and by (batch, n, m) in ``.launches_by_shape``.
+large for the variant's shared memory, which since reg64 and blk128 read
+the right-hand sides past 64 columns from device memory only the forced
+``smem`` variant can meet); nothing is chosen because a build or a launch
+failed, and no system is ever run short. CPU tensors run
+:func:`spd_solve_plain`, the same algorithm as batched torch ops.
+:func:`spd_solve_ll` (K1-ll) is the same solve on lanes-last arrays,
+through the same dispatch with other strides. Each wrapper counts its
+launches in ``.launches``, by variant in ``.launches_by_variant`` and by
+(batch, n, m) in ``.launches_by_shape``.
 """
 from __future__ import annotations
 
@@ -82,23 +95,38 @@ def shared_bytes_per_system(n: int, m: int) -> int:
     return (n * (n | 1) + n * m) * 4
 
 
-REG_MAX_M = 64  # the register variants keep at most two columns a lane
-VARIANTS = ("reg16", "reg32", "smem")
+REG_MAX_M = 64  # reg16 / reg32 keep at most two columns a lane
+REG64_MAX_N = 64  # reg64: two rows a lane
+# the variants k1_variant names, then PR 1's kernel (only ever forced)
+VARIANTS = ("reg16", "reg32", "reg64", "blk128", "smem")
 
 
 def k1_variant(n: int, m: int) -> str:
     """The K1 variant for systems of n x n with m right-hand sides: "reg16"
-    for n <= 16, "reg32" for 16 < n <= 32, both only for m <= 64; "smem"
-    for everything else (n <= MAX_N = 128)."""
+    for n <= 16, "reg32" for 16 < n <= 32, both only for m <= 64; "reg64"
+    for the rest of n <= 64; "blk128" for 64 < n (<= MAX_N = 128)."""
     if m <= REG_MAX_M:
         if n <= 16:
             return "reg16"
         if n <= 32:
             return "reg32"
-    return "smem"
+    if n <= REG64_MAX_N:
+        return "reg64"
+    return "blk128"
 
 
+# every variant's C entry point has this signature: A, Y, X, batch, n, m,
+# shift, sys_a, sys_y, elem, stream
+ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p]
 _fns: dict = {}
+
+
+def entry_point(variant: str) -> str:
+    """The name of a variant's C entry point in ``csrc/spd_solve.cu``."""
+    return f"qm_spd_solve_{variant}_f32"
 
 
 def kernel_fn(variant: str, defines=()):
@@ -107,11 +135,8 @@ def kernel_fn(variant: str, defines=()):
     ``k1_launch_shapes.py`` at the repository root)."""
     key = (variant, tuple(defines))
     if key not in _fns:
-        fn = getattr(load("spd_solve", tuple(defines)), f"qm_spd_solve_{variant}_f32")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_void_p]
+        fn = getattr(load("spd_solve", tuple(defines)), entry_point(variant))
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return _fns[key]
@@ -130,6 +155,9 @@ def _launch(wrapper, variant, A, Y, X, batch, n, m, shift, strides):
         if variant == "smem":
             what += (f": one system needs {shared_bytes_per_system(n, m)} B of shared "
                      "memory, more than a block may hold on this card")
+        else:
+            what += ": a shape the variant does not take, or more shared memory than a block"
+            what += " may hold on this card"
         check_launch(name, err, what)
     wrapper.launches += 1
     wrapper.launches_by_variant[variant] += 1
@@ -157,8 +185,8 @@ def spd_solve(A, Y, shift: float = 0.0, _variant=None):
     n <= 128), counted in ``spd_solve.launches``,
     ``spd_solve.launches_by_variant`` and ``spd_solve.launches_by_shape``;
     CPU tensors go to :func:`spd_solve_plain`. ``_variant`` forces a
-    variant (to time one beside another on the card); the solver never
-    passes it.
+    variant (to time one beside another on the card, PR 1's ``smem``
+    kernel among them); the solver never passes it.
     """
     if A.dim() != 3 or Y.dim() != 3 or A.shape[1] != A.shape[2] \
             or Y.shape[:2] != A.shape[:2]:

@@ -4,10 +4,13 @@ interpret mode at the smallest (SHAPES[0]: a ragged lane batch through the
 same unrolled factor and substitutions as every shape), in float64 at
 1e-10; K1-ll (``spd_solve_ll``, lanes-last) the same way against JAX's
 ``spd_solve_ll``; the
-wrappers' dispatch and input checks on the CPU; the build's library names
-and the ptxas report it keeps. The CUDA kernel itself is held against the
+wrappers' dispatch and input checks on the CPU; each variant's ctypes
+signature against its C entry point; the build's library names, flags and
+the ptxas report it keeps. The CUDA kernel itself is held against the
 plain version on the card by chip_smoke.py."""
+import ctypes
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from qm_door_torch.ops import cuda_build
+from qm_door_torch.ops import spd_solve as k1
 from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_ll, spd_solve_plain
 from qm_door_tpu.ops.pallas_chol import spd_solve as j_spd_solve
 from qm_door_tpu.ops.pallas_chol import spd_solve_ll as j_spd_solve_ll
@@ -103,6 +107,40 @@ def test_wrapper_rejects_bad_inputs(bad):
     }[bad]
     with pytest.raises(ValueError):
         spd_solve(*args)
+
+
+def _c_params(src, name):
+    """ctypes types of the parameters of `extern "C" int name(...)` in src."""
+    params = re.search(rf"{name}\(([^)]*)\)", src).group(1).split(",")
+    kinds = []
+    for p in params:
+        p = " ".join(p.split())
+        if "*" in p:
+            kinds.append(ctypes.c_void_p)
+        elif p.startswith("long long"):
+            kinds.append(ctypes.c_longlong)
+        elif p.startswith("float"):
+            kinds.append(ctypes.c_float)
+        else:
+            kinds.append(ctypes.c_int)
+    return kinds
+
+
+@pytest.mark.parametrize("variant", k1.VARIANTS)
+def test_ctypes_signature_matches_the_entry_point(variant):
+    """The argtypes kernel_fn binds are each variant's C entry point's
+    parameters, one for one (ctypes cannot check a call against the
+    library)."""
+    with open(os.path.join(cuda_build.CSRC, "spd_solve.cu")) as f:
+        src = f.read()
+    assert f'extern "C" int {k1.entry_point(variant)}(' in src
+    assert _c_params(src, k1.entry_point(variant)) == k1.ARGTYPES
+
+
+def test_only_k1_builds_with_split_compilation():
+    assert "--split-compile=0" in cuda_build._flags((), "spd_solve")
+    assert "--split-compile=0" not in cuda_build._flags((), "riccati_bwd")
+    assert cuda_build._flags(("QM_X",), "spd_solve")[-1] == "-DQM_X"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
