@@ -2912,7 +2912,7 @@ def trot_check(run_log, rows, label, bars=TROT_BARS):
     return line
 
 
-def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS, k1=True):
+def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
     """(j) the README's entry point on the card: ClosedLoopRunner on the
     canonical trot in f32 for `seconds` (every solve, tick and step timed
     between synchronizes; one solve and one tick profiled and their K1
@@ -2921,14 +2921,12 @@ def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS, k1=True):
     and kalman paths (side_run), their CPU f64 references computed
     meanwhile in two spawned processes (side_reference), started once the
     trot's timings are taken. Returns K1's row on this path, the trot's
-    result and the side runs' results. `k1` False: the caller has put
-    spd_solve_plain in K1's place (trot_2s.py --k1-plain), so nothing
-    checks or times K1 and the row is None."""
+    result and the side runs' results."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     rows = [json.loads(line) for line in open(TROT_GOLDEN)][:int(round(seconds / 0.002))]
-    row, result = trot_main(dev, seconds, rows, bars, k1)
+    row, result = trot_main(dev, seconds, rows, bars)
     if not side:
         return row, result, {}
     with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2938,21 +2936,14 @@ def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS, k1=True):
     return row, result, sides
 
 
-def trot_main(dev, seconds, rows, bars, k1=True):
+def trot_main(dev, seconds, rows, bars):
     """(j)'s trot window: the run, its launches, the golden, the K1 calls and
-    K1's row (with `k1` False only the run and the golden). Returns (row,
-    result)."""
+    K1's row. Returns (row, result)."""
     import torch
 
     t0 = time.time()
     runner, targets = trot_runner(dev, torch.float32)
     log_, result, recorded, by_shape = run_timed(runner, targets, seconds)
-    if not k1:
-        golden = trot_check(log_, rows, "trot (K1 replaced by spd_solve_plain)", bars)
-        result.update(golden=golden, impl="torch, K1 replaced by spd_solve_plain",
-                      dtype="float32", device=torch.cuda.get_device_name(0),
-                      phase_s=time.time() - t0)
-        return None, result
     check_trot_launches(result, by_shape, "combined", "(j) trot")
     log("[j] trot host ms " + json.dumps({k: result[k] for k in (
         "wall_s", "ticks", "solves", "steps", "host_ms_median", "host_ms_mean",

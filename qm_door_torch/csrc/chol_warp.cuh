@@ -38,6 +38,9 @@
 //                        float4 chunks inside each step (no col[NP] /
 //                        row[NP]) and 1 / L_ii from the chunk that holds the
 //                        diagonal.
+//   factor_lean_ref()    factor_lean() with the reference's rounding of the
+//                        update, A_ij -= L_ik L_jk (spd_solve.cu's blk128
+//                        factors its diagonal blocks with it).
 //
 // Two rows a lane, for 32 < n <= NP with NP in {48, 64} (spd_solve.cu's
 // reg64 variant): lane i holds row i in a0[32] (a row below 32 has no
@@ -268,6 +271,26 @@ __device__ __forceinline__ void factor_lean(float (&a)[NP], float& ivd, int lane
 #pragma unroll
     for (int j = 0; j < NP; ++j)
       if (j > k) a[j] = fmaf(-l_inv, __shfl_sync(kFull, a[k], j), a[j]);
+    a[k] = l;
+    if (lane == k) ivd = inv;
+  }
+}
+
+// factor_lean()'s pivots and outputs, with the update rounded as the
+// reference forms it: A_ij -= L_ik L_jk, where lane j forms L_jk = A_jk inv
+// and the lanes exchange L_jk (the value factor2() forms on every lane).
+// factor_lean()'s A_ij -= (L_ik inv) A_jk rounds otherwise, and on reg64
+// that form moved the card's f32 WBC tick far from the f64 tick at level 2
+// (PERF.md, section 7).
+template <int NP>
+__device__ __forceinline__ void factor_lean_ref(float (&a)[NP], float& ivd, int lane) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const float inv = rsqrtf(fmaxf(__shfl_sync(kFull, a[k], k), 1e-30f));
+    const float l = a[k] * inv;  // L_ik on lane i
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      if (j > k) a[j] = fmaf(-l, __shfl_sync(kFull, l, j), a[j]);
     a[k] = l;
     if (lane == k) ivd = inv;
   }

@@ -73,7 +73,7 @@
 //   stacked systems, n = 92, are a test reference): a block of 8 warps a
 //   system, A padded to a multiple of 32 rows in shared memory (66.6 KB at
 //   n = 128), a blocked right-looking Cholesky with 32-column panels: warp 0
-//   factors the diagonal block in registers (chol_warp::factor_lean<32>),
+//   factors the diagonal block in registers (chol_warp::factor_lean_ref<32>),
 //   the threads solve the rows below it a row each, all 256 threads share
 //   the trailing update in 4 x 4 register tiles (three barriers a panel,
 //   where PR 1's one warp ran a serial ~n^2/2-step chain a lane). The
@@ -487,7 +487,7 @@ __host__ __device__ inline int blk128_floats(int n) {
 
 // One block of 8 warps a system. A blocked right-looking Cholesky with
 // 32-column panels, in place in shared memory: warp 0 factors the panel's
-// diagonal block in registers (chol_warp::factor_lean<32>), the threads solve
+// diagonal block in registers (chol_warp::factor_lean_ref<32>), the threads solve
 // the rows below it a row each (L21 = A21 L11^-T, 32 steps, L11 read as
 // broadcasts), and all 256 threads share the trailing update
 // A22 -= L21 L21^T in 4 x 4 register tiles of its lower triangle: three
@@ -538,7 +538,7 @@ spd_blk128_kernel(const float* __restrict__ A, const float* __restrict__ Y,
       float* row = sA + (c0 + lane) * ld + c0;
 #pragma unroll
       for (int j = 0; j < kPanel; ++j) a[j] = j <= lane ? row[j] : 0.0f;
-      chol_warp::factor_lean<kPanel>(a, ivd, lane);
+      chol_warp::factor_lean_ref<kPanel>(a, ivd, lane);
 #pragma unroll
       for (int j = 0; j < kPanel; ++j)
         if (j <= lane) row[j] = a[j];

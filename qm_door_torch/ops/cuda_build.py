@@ -28,8 +28,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "qm_door_torch")
+# --split-compile=0: nvcc optimizes a source's kernels in parallel (K1's
+# long straight-line reg64 kernels build in about half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 _lock = threading.Lock()  # guards the two dicts below
 _build_locks: dict = {}    # one per library: different sources build in parallel
@@ -50,18 +52,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-# flags of one library only: K1's source holds ten kernels, several of them
-# long straight-line code, and builds in about half the time when nvcc
-# optimizes them in parallel
-LIBRARY_FLAGS = {"spd_solve": ("--split-compile=0",)}
-
-
-def _flags(defines, name: str = "") -> tuple:
-    return NVCC_FLAGS + LIBRARY_FLAGS.get(name, ()) + tuple(f"-D{d}" for d in defines)
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
 def _library_path(name: str, defines=()) -> str:
-    digest = hashlib.sha256(" ".join(_flags(defines, name)).encode())
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -93,7 +89,7 @@ def build(name: str, defines=()) -> str:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *_flags(defines, name), "-o", tmp,
+        proc = subprocess.run([nvcc, *_flags(defines), "-o", tmp,
                                os.path.join(CSRC, f"{name}.cu")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:

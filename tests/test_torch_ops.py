@@ -137,10 +137,10 @@ def test_ctypes_signature_matches_the_entry_point(variant):
     assert _c_params(src, k1.entry_point(variant)) == k1.ARGTYPES
 
 
-def test_only_k1_builds_with_split_compilation():
-    assert "--split-compile=0" in cuda_build._flags((), "spd_solve")
-    assert "--split-compile=0" not in cuda_build._flags((), "riccati_bwd")
-    assert cuda_build._flags(("QM_X",), "spd_solve")[-1] == "-DQM_X"
+def test_defines_follow_the_common_flags():
+    flags = cuda_build._flags(("QM_X", "QM_Y=3"))
+    assert flags[:len(cuda_build.NVCC_FLAGS)] == cuda_build.NVCC_FLAGS
+    assert flags[len(cuda_build.NVCC_FLAGS):] == ("-DQM_X", "-DQM_Y=3")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -2,7 +2,7 @@
 """The full 2 s canonical trot of the torch port on one NVIDIA GPU, held to
 all 1000 rows of the golden trace (docs/artifacts/trot_2s_trace.jsonl).
 
-    python3 trot_2s.py [--k1-plain]
+    python3 trot_2s.py
 
 Builds K1 (qm_door_torch/csrc/spd_solve.cu), then runs chip_smoke.py's
 phase (j) trot (ClosedLoopRunner on tools/record_trace.py:
@@ -19,13 +19,6 @@ switch: JAX's own f32 run leaves the base band too when its spawn moves by
 a micrometre (python3 tests/torch_parity.py trot-swap none 2.0 1e-6), so
 a miss of that band alone does not single out the port; the bars stay
 those of JAX's unperturbed run.
-
---k1-plain is a diagnostic: every module that calls K1 (the solver's
-riccati, projection and transcription, the WBC's qp and hoqp) gets
-spd_solve_plain, the same algorithm as eager f32 torch ops on the card, in
-K1's place for this run only, so nothing launches or checks K1. Set beside
-the normal run, it shows whether the card's miss of the golden comes from
-the kernel's rounding or from the eager f32 ops around it.
 """
 import json
 import os
@@ -43,23 +36,7 @@ import chip_smoke  # noqa: E402
 TROT_2S_BARS = dict(chip_smoke.TROT_BANDS, tau_max=44.2)
 
 
-# the modules that call K1, by their own name for it (--k1-plain)
-K1_CALLERS = ("solver.riccati", "solver.projection", "solver.transcription", "wbc.qp",
-              "wbc.hoqp")
-
-
-def put_plain_in_k1s_place():
-    """Give every module of K1_CALLERS spd_solve_plain in place of K1."""
-    import importlib
-
-    from qm_door_torch.ops.spd_solve import spd_solve_plain
-
-    for name in K1_CALLERS:
-        module = importlib.import_module(f"qm_door_torch.{name}")
-        module.spd_solve = lambda A, Y, shift=0.0: spd_solve_plain(A, Y, shift)
-
-
-def main(argv):
+def main():
     import torch
 
     if not torch.cuda.is_available():
@@ -68,19 +45,14 @@ def main(argv):
     import qm_door_torch  # noqa: F401  (pins full-f32 matmuls)
     from qm_door_torch.ops import cuda_build
 
-    k1_plain = "--k1-plain" in argv
     t0 = time.time()
-    if k1_plain:
-        put_plain_in_k1s_place()
-    else:
-        for line in cuda_build.build("spd_solve", ()).splitlines():
-            chip_smoke.log(f"nvcc spd_solve: {line}")
+    for line in cuda_build.build("spd_solve", ()).splitlines():
+        chip_smoke.log(f"nvcc spd_solve: {line}")
     row, result, _ = chip_smoke.phase_trot(torch.device("cuda", 0), 2.0, side=False,
-                                           bars=TROT_2S_BARS, k1=not k1_plain)
+                                           bars=TROT_2S_BARS)
     chip_smoke.log(f"total {time.time() - t0:.1f} s")
     chip_smoke.log(chip_smoke.card_line())
-    print(json.dumps({"ok": True, "k1": "spd_solve_plain" if k1_plain else "kernel",
-                      "golden": result["golden"], "wall_s": result["wall_s"],
+    print(json.dumps({"ok": True, "golden": result["golden"], "wall_s": result["wall_s"],
                       "host_ms_median": result["host_ms_median"],
                       "k1_launches": result["launches"]["K1"],
                       "device": torch.cuda.get_device_name(0)}))
@@ -88,4 +60,4 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())
