@@ -127,7 +127,7 @@ Phases:
       default_config() (lin_chunk = 0), the trot from t = 0, N = 67,
       SimConfig(), 10 physics steps a cycle with a WBC tick every 2,
       seed-0 perturbations of q0 x 0.01, a 0-60 N payload every cycle and a
-      0-60 N push in cycles 5-7; one untimed cycle, then 10 timed cycles
+      0-60 N push in cycles 3-4; one untimed cycle, then 6 timed cycles
       from the same start: closed_loop_sim_s_per_wall_s, mpc_solves_per_s,
       the wall time, host ms a cycle by part (solve, WBC ticks, physics
       steps; one more cycle, each part ended by a synchronize), device busy
@@ -144,13 +144,13 @@ Phases:
   (j) one robot, the README's entry point (sim/closed_loop.py:
       ClosedLoopRunner) on tools/record_trace.py:canonical_trot_run's
       set-up: AlienGo+Z1, default_config() with the legs and the arm
-      commanded from t = 0, N = 67, f32, 0.36 s of the trot (360 physics
-      steps, 180 ticks, 37 solves), every solve, tick and physics step
+      commanded from t = 0, N = 67, f32, 0.1 s of the trot (100 physics
+      steps, 50 ticks, 11 solves), every solve, tick and physics step
       timed between two synchronizes (host ms against the 10 / 2 / 1 ms
       periods), one solve and one tick under torch.profiler (the card's
       idle share of each) and their K1 calls held to f64; K1 exactly 68 a
       solve and 101 a tick, by variant and shape; held to the golden trace's
-      first 180 rows (docs/artifacts/trot_2s_trace.jsonl) at TROT_BARS; K1
+      first 50 rows (docs/artifacts/trot_2s_trace.jsonl) at TROT_BARS; K1
       at the solve's and the tick's batch-1 shapes timed beside its bound,
       its plain version and torch.linalg; then the separated WBC and the
       Kalman filter (sensor_noise="default") for 0.01 s each, K1 exact, the
@@ -2276,12 +2276,12 @@ def phase_wbc(dev):
 # x LOOP_CYCLES MPC cycles of LOOP_MPC_DECIM physics steps (1 kHz), a WBC
 # tick every LOOP_CONTROL_DECIM of them
 LOOP_BATCH = 1024
-LOOP_CYCLES = 10
+LOOP_CYCLES = 6  # short, so that the whole script fits its 1,200 s limit
 LOOP_MPC_DECIM = 10
 LOOP_CONTROL_DECIM = 2
 LOOP_PAYLOAD_N = 60.0  # payload 0-60 N on -z every cycle
 LOOP_PUSH_N = 60.0     # a 0-60 N lateral push at a random heading
-LOOP_PUSH_CYCLES = (5, 8)  # ... in cycles 5-7
+LOOP_PUSH_CYCLES = (3, 5)  # ... in cycles 3-4
 LOOP_HEIGHT_BAND = 0.05    # m: every base within 5 cm of the nominal stance height
 LOOP_CROSS_BATCH = 4
 LOOP_CROSS_CYCLES = 2
@@ -2610,8 +2610,9 @@ def phase_closed_loop(dev):
 # held to the golden trace's first rows
 TROT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
                            "trot_2s_trace.jsonl")
-# 360 physics steps, 180 ticks, 37 solves: past the first switch (0.35 s)
-TROT_SECONDS = 0.36
+# 100 physics steps, 50 ticks, 11 solves, short so that the whole script
+# fits its 1,200 s limit (trot_2s.py runs all 2 s)
+TROT_SECONDS = 0.1
 SIDE_SECONDS = 0.01  # the separated and kalman runs: 5 ticks, the 2 solves at t = 0
 # tests/test_trace_golden.py:49-57's bands
 TROT_BANDS = {"t": 1e-9, "base_xyz": 5e-3, "base_rpy": 2e-2, "ee": 1e-2, "tau_p95": 1.0,
@@ -2619,10 +2620,10 @@ TROT_BANDS = {"t": 1e-9, "base_xyz": 5e-3, "base_rpy": 2e-2, "ee": 1e-2, "tau_p9
 # the bars the card's f32 run is held to: a band where the JAX package's own
 # f32 run of the same window stays inside it on the CPU, twice JAX's f32
 # deviation (rounded up) where it does not. python3 tests/torch_parity.py
-# trot-bars 0.36: JAX's f32 run against the golden's first 180 rows: base
-# xyz 1.04e-3 m, rpy 2.17e-4 rad, EE 3.41e-4 m, torques p95 0.473 Nm, max
+# trot-bars 0.1: JAX's f32 run against the golden's first 50 rows: base
+# xyz 5.06e-4 m, rpy 2.17e-4 rad, EE 1.89e-4 m, torques p95 0.635 Nm, max
 # 22.08 Nm (past the 20 Nm band: single ticks of the f32 polish); its f64
-# run: 3.06e-5 m, 9.53e-6 rad, 1.35e-5 m, 0.0115 Nm, 0.802 Nm
+# run: 1.44e-5 m, 8.08e-6 rad, 1.04e-5 m, 0.0196 Nm, 0.802 Nm
 TROT_BARS = dict(TROT_BANDS, tau_max=44.2)
 # K1's calls: a solve (the projection's node solves, then the gain solve of
 # each of the 67 nodes), a tick by stack (93 Newton solves and two
@@ -2703,7 +2704,7 @@ def golden_deviation(run_log, rows):
             "tau_p95": float(np.percentile(tau, 95)), "tau_max": float(tau.max())}
 
 
-def run_timed(runner, targets, seconds, profile_at=(20, 100), record_at=(21, 101)):
+def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26)):
     """One run of the runner on the card with the launch counters set to 0
     just before and read just after: host ms of every solve, tick and
     physics step (each call between two synchronizes), the card's busy ms

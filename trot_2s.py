@@ -7,7 +7,7 @@ all 1000 rows of the golden trace (docs/artifacts/trot_2s_trace.jsonl).
 Builds K1 (qm_door_torch/csrc/spd_solve.cu), then runs chip_smoke.py's
 phase (j) trot (ClosedLoopRunner on tools/record_trace.py:
 canonical_trot_run's set-up, f32, every solve, tick and physics step timed
-between synchronizes, K1 counted exactly) for 2 s instead of 0.36 s, without
+between synchronizes, K1 counted exactly) for 2 s instead of 0.1 s, without
 the separated and kalman runs. Held: a band of tests/test_trace_golden.py
 where the JAX package's own f32 run of the 2 s stays inside it on the CPU,
 twice its deviation where it does not (TROT_2S_BARS, from python3
