@@ -65,12 +65,14 @@ Phases:
       K2 and K3c run the reg variant there, and the smem variant on the same
       data is checked too and timed in turns (smem, reg, reg, smem), with
       each variant's per-phase clock64() cycles a node; then K2 and K3c at
-      (Bb, N, nx, nu) = (5, 9, 7, 4), (3, 1, 30, 30), (7, 11, 36, 32) and
-      (2, 5, 30, 36), with and without a shift, on the JAX tests' random
-      recipe, each through the variant sweep_variant names (reg, reg,
-      reg with two solving warps, smem) and within 1e-3 of the f64 plain
+      (Bb, N, nx, nu) = (5, 9, 7, 4), (3, 1, 30, 30), (7, 11, 36, 32),
+      (2, 5, 30, 36), (3, 4, 36, 36) and (2, 5, 30, 33), with and without a
+      shift, on the JAX tests' random recipe, each through the variant
+      sweep_variant names (reg, reg, reg with two solving warps, reg2,
+      reg2 with two solving warps, reg2) and within 1e-3 of the f64 plain
       sweep; K1-ll (lanes-last K1, through K1's dispatch: reg32 at
-      384 x 30 x 31) against spd_solve_plain with ragged batches, reg64
+      384 x 30 x 31) against spd_solve_plain, timed beside
+      torch.cholesky_solve on the permuted view, then with ragged batches, reg64
       by rows and by columns and blk128 among them;
       each new wrapper refuses float64 and a non-contiguous input.
   (e) backends: BatchedMpc(backend="bm_fused") and ("lq_fused") driven as
@@ -87,13 +89,17 @@ Phases:
       widened (grasp from t >= 0.3 s, wrench reference [4, 0, -9, 0, 0,
       0.4]) and U from weight_compensating_input_ft; bm_k1 and bm_fused
       driven as (b) drives bm_k1 (exact launches a step: bm_k1 K1 68 = 1
-      reg16 + 67 reg64; bm_fused K1 1 reg16 + K2 1 smem), mean violation <=
+      reg16 + 67 reg64; bm_fused K1 1 reg16 + K2 1 reg2), mean violation <=
       1e-5, the off-grasp wrench exactly 0, per-stage host ms and the card's
       idle share, and (c)'s cross-precision check for each; K1's reg64
       variant at 384 x 36 x 31 (node 0's gain system at the warm iterate,
       within 1e-4 of f64; timed in turns against PR 1's kernel) and K2's
-      smem variant at 384 x 67 x 30 x 36
-      (within 1e-3 of f64), each timed beside its bound and its plain
+      reg2 variant at 384 x 67 x 30 x 36 (within 1e-3 of f64; at least 3
+      blocks an SM by cudaOccupancyMaxActiveBlocksPerMultiprocessor; the
+      smem variant on the same inputs held to f64 too and timed in turns,
+      smem, reg2, reg2, smem, with both variants' phase clocks a node; K3c's
+      reg2 on the same inputs held to f64),
+      each timed beside its bound and its plain
       version (K1 also beside torch.linalg); the other options on bm_k1
       with the launches checked: lin_tangents f32 and bf16 a cold and 20
       warm steps each, mean violation <= 1e-5; sensitivity rk2, arm_locked
@@ -303,8 +309,8 @@ def build_all():
     report (kept from the build when a library is reused) and fail unless
     it shows the four K1 reg16 / reg32 kernels, the four reg64 kernels
     (rows padded to 48 / 64 x solved by rows / columns), the blk128 kernel,
-    the four sweep kernels (K2/K3c x
-    reg/smem), the four K3a/K3b kernels (x bulk/4-byte copies) and the two
+    the six sweep kernels (K2/K3c x
+    reg/reg2/smem), the four K3a/K3b kernels (x bulk/4-byte copies) and the two
     K3d kernels (bulk/4-byte copies) of the normal build without spills.
     The phase-clock builds' spills are logged: their cycle counts carry
     them."""
@@ -329,7 +335,7 @@ def build_all():
             ("K1 reg16 / reg32", ("spd_solve", ()), "spd_reg_kernel", 4),
             ("K1 reg64", ("spd_solve", ()), "spd_reg64_kernel", 4),
             ("K1 blk128", ("spd_solve", ()), "spd_blk128_kernel", 1),
-            ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel", 4),
+            ("sweep kernels", ("riccati_bwd", ()), "riccati_bwd_kernel", 6),
             ("K3a/K3b kernels", ("lq_project", ()), "project_", 4),
             ("K3d kernels", ("lq_forward", ()), "forward_kernel", 2)):
         spills = kernel_spills(outs[libs.index(lib)], kernel)
@@ -366,11 +372,14 @@ FORWARD_BUILDS = {"new": (), "row_warps": ("QM_FWD_ROW_WARPS",)}
 LQ_BUILDS = {"K3a": PROJECTION_BUILDS, "K3b": PROJECTION_BUILDS, "K3d": FORWARD_BUILDS}
 
 
+SWEEP_TEMPLATE_VARIANTS = {"0": "smem", "1": "reg", "2": "reg2"}  # csrc/riccati_bwd.cu:Variant
+
+
 def sweep_instance(name):
-    """"K2_reg", "K3c_smem", ... for a mangled riccati_bwd_kernel<kSym, kReg>
-    name."""
-    tail = name.split("riccati_bwd_kernelILb")[1]  # "<kSym>ELb<kReg>E..."
-    return f"{'K2' if tail[0] == '1' else 'K3c'}_{'reg' if tail[4] == '1' else 'smem'}"
+    """"K2_reg", "K3c_reg2", "K2_smem", ... for a mangled
+    riccati_bwd_kernel<kSym, V> name."""
+    tail = name.split("riccati_bwd_kernelILb")[1]  # "<kSym>ELi<V>E..."
+    return f"{'K2' if tail[0] == '1' else 'K3c'}_{SWEEP_TEMPLATE_VARIANTS[tail[4]]}"
 
 
 def kernel_spills(ptxas_out, kernel):
@@ -1205,8 +1214,10 @@ def sweep_phases(args, symmetrize, variant):
 
 # (Bb, N, nx, nu) off the path, each with and without a shift: the small
 # parity shape, one node, the reg variant with a second solving warp
-# (nx + 1 = 37 columns), and the smem variant (nu = 36)
-SWEEP_SHAPES = ((5, 9, 7, 4), (3, 1, 30, 30), (7, 11, 36, 32), (2, 5, 30, 36))
+# (nx + 1 = 37 columns), and reg2 at nu = 36, with a second solving warp
+# (36 / 36) and at its narrowest, nu = 33
+SWEEP_SHAPES = ((5, 9, 7, 4), (3, 1, 30, 30), (7, 11, 36, 32), (2, 5, 30, 36), (3, 4, 36, 36),
+                (2, 5, 30, 33))
 SWEEP_SHIFT = 1e-3
 
 
@@ -1320,25 +1331,26 @@ def kernel_row(kid, name, fn, plain, args, refs_f64, tol, nbytes, flops, reps=20
     return row, outs
 
 
-def sweep_turns(row, args, ref, symmetrize, reps=20):
-    """The path's sweep variant and the other one on the same inputs: each
-    held against the f64 reference, then timed in turns (other, path, path,
-    other) in chained calls; `ms` becomes the path variant's mean, `ms_<v>`
-    the other's; the phase clocks of both."""
-    from qm_door_torch.ops.riccati_fused import VARIANTS, sweep_variant
+def sweep_turns(row, args, ref, symmetrize, reps=20, tag="d"):
+    """The path's sweep variant and the block-parallel kernel (smem, only
+    ever forced) on the same inputs: smem held against the f64 reference,
+    then the two timed in turns (smem, path, path, smem) in chained calls;
+    `ms` becomes the path variant's mean, `ms_smem` smem's; the phase
+    clocks of both."""
+    from qm_door_torch.ops.riccati_fused import sweep_variant
 
     kid = row["id"]
     path = sweep_variant(*args[1].shape[2:])
-    other = next(v for v in VARIANTS if v != path)
-    _, row[f"rel_err_{other}"], _ = sweep_run(kid, args, ref, "path data", variant=other)
-    calls = {v: (lambda v=v: sweep_call(kid, args, variant=v)) for v in (other, path)}
-    turns, means = in_turns(calls, (other, path, path, other), chained(reps))
-    row.update(variant=path, ms=means[path], ms_turns=turns, **{f"ms_{other}": means[other]},
-               phase_cycles_per_node={v: sweep_phases(args, symmetrize, v) for v in VARIANTS},
+    _, row["rel_err_smem"], _ = sweep_run(kid, args, ref, "path data", variant="smem")
+    calls = {v: (lambda v=v: sweep_call(kid, args, variant=v)) for v in ("smem", path)}
+    turns, means = in_turns(calls, ("smem", path, path, "smem"), chained(reps))
+    row.update(variant=path, ms=means[path], ms_turns=turns, ms_smem=means["smem"],
+               phase_cycles_per_node={v: sweep_phases(args, symmetrize, v)
+                                      for v in (path, "smem")},
                phase_clock_build_spills=SWEEP_CLOCK_SPILLS)
-    log(f"[d] {kid} in turns: " + json.dumps({k: row[k] for k in (
-        "variant", "ms", f"ms_{other}", "ms_turns", f"rel_err_{other}",
-        "phase_cycles_per_node", "phase_clock_build_spills")}))
+    log(f"[{tag}] {kid} in turns: " + json.dumps({k: row[k] for k in (
+        "variant", "ms", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",
+        "phase_clock_build_spills")}))
 
 
 def lq_turns(row, args, shift=0.0, reps=50):
@@ -1545,6 +1557,13 @@ def phase_new_kernels(dev, main):
                                 .permute(1, 2, 0),),
                 [At, Yt], [ref], K1_REL_TOL, 4 * batch * (n * (n + 1) // 2 + 2 * n * m),
                 batch * (n ** 3 / 3.0 + 2.0 * n * n * m), reps=50)
+            # the library's call for the same function: Cholesky and
+            # cholesky_solve on the batch-first view of the lanes-last data
+            Ab, Yb = At.permute(2, 0, 1), Yt.permute(2, 0, 1)
+            rows["K1-ll"]["library_ms"] = cuda_ms(
+                lambda: torch.cholesky_solve(Yb, torch.linalg.cholesky(Ab)), reps=20)
+            log(f"[d] K1-ll library (torch.cholesky_solve on the permuted view): "
+                f"{rows['K1-ll']['library_ms']:.5f} ms")
         else:
             rel, _ = rel_err([spd_solve_ll(At, Yt, s_ll)], [ref])
             if not rel <= K1_REL_TOL:
@@ -1699,11 +1718,13 @@ def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", **problem):
 
 
 # launches a step of the force-tracking problem (nu = 36): the gain solves
-# go to K1's reg64 variant (n = 36 > 32), the sweep to K2's smem variant
+# go to K1's reg64 variant (n = 36 > 32), the sweep to K2's reg2 variant
 FT_EXPECT = {
     "bm_k1": ({"K1": 68}, {"reg16": 1, "reg64": 67}, {}),
-    "bm_fused": ({"K1": 1, "K2": 1}, {"reg16": 1}, {"K2": {"smem": 1}}),
+    "bm_fused": ({"K1": 1, "K2": 1}, {"reg16": 1}, {"K2": {"reg2": 1}}),
 }
+# reg2's blocks an SM at 30/36: 3 keep the 384 scenarios in one wave on 132 SMs
+FT_SWEEP_BLOCKS = 3
 OPTION_WARM_STEPS = 2
 # (g) the other options on bm_k1: make_problem's keyword arguments and the
 # check. The tangent families change only the Newton direction (bf16 rounds
@@ -1723,7 +1744,7 @@ def phase_force_tracking(dev, refs):
     """(g) force tracking at full width: bm_k1 and bm_fused driven as (b)
     drives bm_k1, the off-grasp wrench exactly 0, per-stage host ms and the
     card's idle share, (c)'s cross-precision check for each; K1's reg64
-    variant at the gain shape and K2's smem variant on (g)'s warm iterate;
+    variant at the gain shape and K2's reg2 variant on (g)'s warm iterate;
     the other options; one SqpSolver.solve cold and warm. Returns the two
     runs and the two kernel rows."""
     import torch
@@ -1756,7 +1777,7 @@ def phase_force_tracking(dev, refs):
         phase_cross_precision(dev, refs, backend, "g", force_tracking=True)
         seconds[f"split_cross_{backend}"], t0 = time.time() - t0, time.time()
     rows["K1_gain"] = ft_gain_kernel(runs["bm_k1"])
-    rows["K2_smem"] = ft_sweep_kernel(runs["bm_fused"])
+    rows["K2_nu36"] = ft_sweep_kernel(runs["bm_fused"])
     seconds["kernels"], t0 = time.time() - t0, time.time()
     phase_options(dev, refs)
     seconds["options"], t0 = time.time() - t0, time.time()
@@ -1806,23 +1827,38 @@ def ft_gain_kernel(run):
 
 
 def ft_sweep_kernel(run):
-    """K2's smem variant at 384 x 67, nx 30, nu 36 on (g)'s bm_fused warm
-    iterate: held against its f64 plain version, timed beside its bound."""
+    """K2 at 384 x 67, nx 30, nu 36 on (g)'s bm_fused warm iterate: the
+    variant the path runs (reg2) held against its f64 plain version and
+    timed beside its bound; its blocks an SM (cudaOccupancyMaxActive-
+    BlocksPerMultiprocessor, at least FT_SWEEP_BLOCKS); then the
+    block-parallel kernel (smem) on the same inputs, held to f64 and timed in turns
+    (smem, reg2, reg2, smem), with both variants' phase clocks a node; and
+    K3c's reg2 on the same inputs, held to its own f64 plain sweep."""
     from qm_door_torch.ops import riccati_fused as rf
 
     plq = run["lq_data"]["plq"]
     args = [t.contiguous() for t in (plq.A, plq.B, plq.d, plq.lx, plq.lu, plq.lxx, plq.luu,
                                      plq.lux, plq.lxx_f, plq.lx_f)]
     B, N, nx, nu = args[1].shape
-    if rf.sweep_variant(nx, nu) != "smem" or nu != 36:
+    if rf.sweep_variant(nx, nu) != "reg2" or nu != 36:
         raise RuntimeError(f"K2 at nu = {nu}: variant {rf.sweep_variant(nx, nu)}")
+    blocks = {v: rf.blocks_per_sm(v, nx, nu) for v in ("reg2", "smem")}
+    if blocks["reg2"] < FT_SWEEP_BLOCKS:
+        raise RuntimeError(f"K2 reg2 at {nx}/{nu}: {blocks['reg2']} blocks an SM, "
+                           f"fewer than {FT_SWEEP_BLOCKS}")
     nbytes, flops = sweep_cost(B, N, nx, nu)
     ref = rf.riccati_backward_fused_plain(*[t.double() for t in args])
-    row, _ = kernel_row("K2", "riccati_backward_fused smem, nu = 36", rf.riccati_backward_fused,
+    row, _ = kernel_row("K2", "riccati_backward_fused reg2, nu = 36", rf.riccati_backward_fused,
                         rf.riccati_backward_fused_plain, args, ref, SWEEP_REL_TOL, nbytes, flops,
-                        tag="g", variant="smem", shape=[B, N, nx, nu])
+                        tag="g", shape=[B, N, nx, nu], blocks_per_sm=blocks)
+    sweep_turns(row, args, ref, True, tag="g")
+    # K3c runs the same kernel without the input symmetrization: reg2 at
+    # this shape too, on the same inputs, against its own f64 plain sweep
+    _, row["rel_err_k3c"], _ = sweep_run("K3c", args, rf.sweep_plain(
+        *[t.double() for t in args], 0.0, False), "nu = 36 iterate")
+    log(f"[g] K3c reg2 at 384 x 67 x 30 x 36: relative error {row['rel_err_k3c']:.3e}")
     row["library_ms"] = None
-    row["launches"] = run["sweep_variants"]["K2"]["smem"]
+    row["launches"] = run["sweep_variants"]["K2"]["reg2"]
     return row
 
 
@@ -2698,20 +2734,27 @@ def golden_deviation(run_log, rows):
     ref = {k: np.asarray([r[k] for r in rows[:n]]) for k in ("t", "base_pose", "tau", "ee_pos")}
     base = np.abs(np.stack(run_log.base_pose) - ref["base_pose"])
     tau = np.abs(np.stack(run_log.tau) - ref["tau"])
+    ee = np.abs(np.stack(run_log.ee_pos) - ref["ee_pos"])
+    by_row = {"base_xyz": base[:, 0:3].max(axis=1), "base_rpy": base[:, 3:6].max(axis=1),
+              "ee": ee.max(axis=1), "tau_max": tau.max(axis=1)}
     return {"rows": n, "t": float(np.abs(np.asarray(run_log.t) - ref["t"]).max()),
             "base_xyz": float(base[:, 0:3].max()), "base_rpy": float(base[:, 3:6].max()),
-            "ee": float(np.abs(np.stack(run_log.ee_pos) - ref["ee_pos"]).max()),
-            "tau_p95": float(np.percentile(tau, 95)), "tau_max": float(tau.max())}
+            "ee": float(ee.max()), "tau_p95": float(np.percentile(tau, 95)),
+            "tau_max": float(tau.max()),
+            # the golden's t at each quantity's worst row
+            "worst_t": {k: float(ref["t"][int(np.argmax(v))]) for k, v in by_row.items()}}
 
 
-def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26)):
+def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26),
+              height_offset=0.0):
     """One run of the runner on the card with the launch counters set to 0
     just before and read just after: host ms of every solve, tick and
     physics step (each call between two synchronizes), the card's busy ms
     of the solve and the tick numbered `profile_at` (device_busy, the call
     itself), and K1's calls of the solve and the tick numbered `record_at`
-    (k1_calls). Returns (log, result dict, recorded calls by "solve" /
-    "tick")."""
+    (k1_calls). `height_offset` (m) raises the spawn (ClosedLoopRunner.run's
+    start_height_offset). Returns (log, result dict, recorded calls by
+    "solve" / "tick")."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve
@@ -2751,7 +2794,7 @@ def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26)):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        run_log = runner.run(targets, duration=seconds)
+        run_log = runner.run(targets, duration=seconds, start_height_offset=height_offset)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_launches()
@@ -2766,7 +2809,8 @@ def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26)):
                                   if i != profile_at[k == "tick"] or k == "step"]))
               for k, v in host.items()}
     result = {
-        "seconds": seconds, "wall_s": wall, "safe": run_log.safe, "ticks": len(host["tick"]),
+        "seconds": seconds, "height_offset_m": height_offset, "wall_s": wall,
+        "safe": run_log.safe, "ticks": len(host["tick"]),
         "solves": len(host["solve"]), "steps": len(host["step"]),
         "host_ms_median": median,
         "host_ms_mean": {k: float(np.mean(v)) for k, v in host.items()},
@@ -2913,9 +2957,10 @@ def trot_check(run_log, rows, label, bars=TROT_BARS):
     return line
 
 
-def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
+def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS, height_offset=0.0):
     """(j) the README's entry point on the card: ClosedLoopRunner on the
-    canonical trot in f32 for `seconds` (every solve, tick and step timed
+    canonical trot in f32 for `seconds`, the spawn raised by `height_offset`
+    m (0 in (j); trot_2s.py --height-offset) (every solve, tick and step timed
     between synchronizes; one solve and one tick profiled and their K1
     calls held to f64), held to the golden's first rows (TROT_BARS), K1
     exactly SOLVE_K1 a solve and TICK_K1 a tick; then (side) the separated
@@ -2927,7 +2972,7 @@ def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
     from concurrent.futures import ProcessPoolExecutor
 
     rows = [json.loads(line) for line in open(TROT_GOLDEN)][:int(round(seconds / 0.002))]
-    row, result = trot_main(dev, seconds, rows, bars)
+    row, result = trot_main(dev, seconds, rows, bars, height_offset)
     if not side:
         return row, result, {}
     with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2937,14 +2982,15 @@ def phase_trot(dev, seconds=TROT_SECONDS, side=True, bars=TROT_BARS):
     return row, result, sides
 
 
-def trot_main(dev, seconds, rows, bars):
+def trot_main(dev, seconds, rows, bars, height_offset=0.0):
     """(j)'s trot window: the run, its launches, the golden, the K1 calls and
     K1's row. Returns (row, result)."""
     import torch
 
     t0 = time.time()
     runner, targets = trot_runner(dev, torch.float32)
-    log_, result, recorded, by_shape = run_timed(runner, targets, seconds)
+    log_, result, recorded, by_shape = run_timed(runner, targets, seconds,
+                                                 height_offset=height_offset)
     check_trot_launches(result, by_shape, "combined", "(j) trot")
     log("[j] trot host ms " + json.dumps({k: result[k] for k in (
         "wall_s", "ticks", "solves", "steps", "host_ms_median", "host_ms_mean",
@@ -3047,7 +3093,8 @@ def main():
             # the launches of its backend's driven run in (e); K1-ll has no caller
             "launches": path_launches.get(kid, 0), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "rel_err": r["rel_err"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "rel_err": r["rel_err"],
             "rel_err_plain_f32": r["rel_err_plain_f32"], "bytes": r["bytes"],
             "flops": r["flops"]})
         if kid in LQ_BUILDS:  # (d)'s measuring build in turns and both builds' clocks
@@ -3057,18 +3104,20 @@ def main():
                 "variant", "ms_smem", "ms_turns", "rel_err_smem", "phase_cycles_per_node",
                 "phase_clock_build_spills")}, launches_by_variant=sweep_by_variant[kid])
     # (g)'s path, force tracking: K1's reg64 variant on bm_k1's gain solves and
-    # K2's smem variant on bm_fused, with the launches of (g)'s driven runs
+    # K2's reg2 variant on bm_fused, with the launches of (g)'s driven runs
     for r, (name, source, replaces), path in (
             (ft_rows["K1_gain"], ("spd_solve", "qm_door_torch/csrc/spd_solve.cu",
                                   "qm_door_tpu/ops/pallas_chol.py:103"), "force_tracking bm_k1"),
-            (ft_rows["K2_smem"], KERNELS["K2"], "force_tracking bm_fused")):
+            (ft_rows["K2_nu36"], KERNELS["K2"], "force_tracking bm_fused")):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "variant": r["variant"], "path": path, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "rel_err": r["rel_err"], "bytes": r["bytes"], "flops": r["flops"],
-            **{k: r[k] for k in ("ms_graph", "ms_smem_graph") if k in r}})
+            **{k: r[k] for k in ("ms_graph", "ms_smem_graph", "ms_smem", "ms_turns",
+                                 "rel_err_smem", "rel_err_k3c", "phase_cycles_per_node",
+                                 "blocks_per_sm") if k in r}})
     # (h)'s path, the whole-body cascade: K1 at each of its shapes, with the
     # launches of (h)'s chained ticks
     for r in wbc_rows:

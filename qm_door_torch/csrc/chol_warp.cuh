@@ -63,6 +63,24 @@
 //   solve_cols()         solve_lean() at NP = 48 / 64, steps past n
 //                        skipped (one column a lane: two put z[2][64] in
 //                        local memory).
+//
+// A tail of T <= 4 rows, for 32 < n <= 32 + T (riccati_bwd.cu's reg2
+// variant, NP = 36): lane i holds row i of the leading 32 in a[32], as
+// load_rows_ld(); rows 32.. are held by columns, lane j keeping t[r] =
+// A[32 + r][j], and the T x T corner A[32 + r][32 + s] (s <= r) sits on
+// every lane alike. factor2() at NP = 36 holds a1[36] on every lane for 4
+// rows of use and spilled at the sweep's 168 registers; this holds 32 + T +
+// T(T + 1)/2 floats.
+//   load_rows_tail()     the three parts from rows of stride ld (identity
+//                        rows from n on).
+//   factor_tail()        factor_lean_ref()'s 32 pivots, each also sending
+//                        the tail's column k (T shuffles from lane k) to
+//                        every lane, which updates its column of the tail
+//                        and the corner; then the corner's T pivots on
+//                        every lane, no shuffle. 1 / L_ii as rsqrt, as
+//                        factor_lean().
+//   store_factor_tail()  store_factor_lean()'s layout at NP = 32 + T, which
+//                        solve_lean<NP>() reads (identity rows past n).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -593,6 +611,93 @@ __device__ __forceinline__ void solve_cols(float (&z)[NP], const float* sLt, con
       }
     }
   });
+}
+
+// --- a tail of rows held by columns (see the note at the top) ----------------
+
+template <int T>
+__device__ __forceinline__ void load_rows_tail(float (&a)[kWarp], float (&t)[T],
+                                               float (&c)[T][T], const float* sA, int n, int ld,
+                                               int lane) {
+  load_rows_ld<kWarp>(a, sA, n, ld, lane);
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    const bool real = kWarp + r < n;
+    const float* row = sA + (kWarp + r) * ld;
+    t[r] = real ? row[lane] : 0.0f;
+#pragma unroll
+    for (int s = 0; s <= r; ++s) c[r][s] = real ? row[kWarp + s] : (s == r ? 1.0f : 0.0f);
+  }
+}
+
+// In place: a[j] = L[i][j] (j <= i) on lane i, t[r] = L[32 + r][j] on lane
+// j, c[r][s] = L[32 + r][32 + s] (s <= r) on every lane; ivd = 1 / L_ii on
+// lane i and ivc[r] = 1 / L[32 + r][32 + r] on every lane.
+template <int T>
+__device__ __forceinline__ void factor_tail(float (&a)[kWarp], float (&t)[T], float (&c)[T][T],
+                                            float& ivd, float (&ivc)[T], int lane) {
+#pragma unroll
+  for (int k = 0; k < kWarp; ++k) {
+    const float inv = rsqrtf(fmaxf(__shfl_sync(kFull, a[k], k), 1e-30f));
+    const float l = a[k] * inv;  // L_ik on lane i
+    float lt[T];                 // L[32 + r][k], from lane k's column
+#pragma unroll
+    for (int r = 0; r < T; ++r) lt[r] = __shfl_sync(kFull, t[r], k) * inv;
+#pragma unroll
+    for (int j = 0; j < kWarp; ++j)
+      if (j > k) a[j] = fmaf(-l, __shfl_sync(kFull, l, j), a[j]);
+#pragma unroll
+    for (int r = 0; r < T; ++r) {
+      t[r] = lane > k ? fmaf(-lt[r], l, t[r]) : (lane == k ? lt[r] : t[r]);
+#pragma unroll
+      for (int s = 0; s <= r; ++s) c[r][s] = fmaf(-lt[r], lt[s], c[r][s]);
+    }
+    a[k] = l;
+    if (lane == k) ivd = inv;
+  }
+#pragma unroll
+  for (int p = 0; p < T; ++p) {
+    const float inv = rsqrtf(fmaxf(c[p][p], 1e-30f));
+#pragma unroll
+    for (int r = p; r < T; ++r) c[r][p] *= inv;
+#pragma unroll
+    for (int r = p + 1; r < T; ++r)
+#pragma unroll
+      for (int s = p + 1; s <= r; ++s) c[r][s] = fmaf(-c[r][p], c[s][p], c[r][s]);
+    ivc[p] = inv;
+  }
+}
+
+// sLt[j * NP + i] = L[i][j] and sL[i * row_stride + j] = L[i][j] at
+// NP = 32 + T, 1 / L_ii on both diagonals; entries above the diagonal of
+// the tail are not written (solve_cols never uses them).
+template <int T>
+__device__ __forceinline__ void store_factor_tail(const float (&a)[kWarp], const float (&t)[T],
+                                                  const float (&c)[T][T], float ivd,
+                                                  const float (&ivc)[T], float* sLt, float* sL,
+                                                  int lane) {
+  constexpr int NP = kWarp + T;
+  constexpr int rs = row_stride<NP>();
+#pragma unroll
+  for (int j = 0; j < kWarp; ++j) sLt[j * NP + lane] = a[j];
+  float4* row = reinterpret_cast<float4*>(sL + lane * rs);
+#pragma unroll
+  for (int q = 0; q < kWarp / 4; ++q)
+    row[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  sLt[lane * NP + lane] = ivd;
+  sL[lane * rs + lane] = ivd;
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    sLt[lane * NP + kWarp + r] = t[r];
+    sL[(kWarp + r) * rs + lane] = t[r];
+#pragma unroll
+    for (int s = 0; s <= r; ++s)
+      if (lane == r * T + s) {
+        const float v = s == r ? ivc[r] : c[r][s];
+        sLt[(kWarp + s) * NP + kWarp + r] = v;
+        sL[(kWarp + r) * rs + kWarp + s] = v;
+      }
+  }
 }
 
 }  // namespace chol_warp

@@ -37,9 +37,9 @@
 // which keeps them exactly symmetric. K2 symmetrizes lxx, luu and lxx_f on
 // the fly (reads (i,j) and (j,i)); K3c reads them as given.
 //
-// Two variants differ in the Cholesky and the solve of
+// Three variants differ in the Cholesky and the solve of
 // [K | kff] = -Quu^-1 [Qux | Qu] and in their block (one C entry point
-// each; ops/riccati_fused.py:sweep_variant picks one by shape):
+// each; ops/riccati_fused.py:sweep_variant picks reg or reg2 by shape):
 // - reg (nu <= 32, the solver's path), 128 threads (4 warps): one warp, on
 //   chol_warp.cuh's register-lean routines. Lane i loads row i of Quu
 //   (padded to 32 with identity rows) and the warp factors it with
@@ -60,14 +60,31 @@
 //   alignment) into the other set, and node k-1 waits for them at its
 //   start: the loads leave the chain but for that wait. 67.8 KB of shared
 //   memory a block at 30/30 (3 blocks an SM fit in 227 KB).
-// - smem (32 < nu <= 36, up to the force-tracking width), 256 threads (8
-//   warps, 80 registers): the block-parallel Cholesky on the lower triangle
+// - reg2 (32 < nu <= 36, the force-tracking width): reg's block, loads and
+//   phases; the factoring warp holds rows 0..31 a row a lane and rows
+//   32..35 by columns (lane j keeps their column j, every lane their 4 x 4
+//   corner), padded to 36 = kMaxDim with identity rows (chol_warp.cuh's
+//   load_rows_tail / factor_tail / store_factor_tail), and the column solve
+//   runs all 36 steps as reg's runs 32 (solve_lean: straight-line code; the
+//   identity rows keep z zero; solve_cols' branch a step, which skips the
+//   steps past nu, held each step's loads behind it and took 14.4k cycles a
+//   node against reg's 4.8k at 30/30). Registers: two rows a
+//   lane (factor2, a0[32] + a1[36]) spilled 28 bytes at reg's 168; the tail
+//   by columns holds 46 floats. Shared memory: reg's layout grown to 30/36
+//   needs 87.5 KB, over the 76.8 KB that 3 blocks an SM leave a block;
+//   padding to 36, not 48, shrinks L's two copies from 4,800 to 2,736
+//   floats, and Quu (F) lies in L's buffer (F is dead once the factoring
+//   warp holds its rows): 73.9 KB at 30/36, so the 384 scenarios stay one
+//   wave.
+// - smem (the first kernel, nu <= 36; reached only when forced, to be timed
+//   beside reg2), 256 threads (8 warps, 80 registers): the block-parallel
+//   Cholesky on the lower triangle
 //   of Quu in shared memory (odd row stride; warps over rows, lanes over
 //   columns of the trailing update), one __syncthreads per pivot, column k
 //   scaled one step late; then two substitutions with each warp on every
 //   8th column and its lanes on the rows (lane and lane + 32), each solved
 //   entry passed on by a shuffle. Each node's data is loaded at its start.
-// Both multiply by 1 / L_ii instead of dividing. Generic nx <= 36; no batch
+// All multiply by 1 / L_ii instead of dividing. Generic nx <= 36; no batch
 // padding, no lanes-last layout. f32 FMAs on the CUDA cores, no tensor
 // cores: the chain needs true f32.
 
@@ -75,11 +92,12 @@
 
 #include "chol_warp.cuh"
 
-// The reg variant's block shape: threads a block and the blocks an SM it is
-// compiled for, which set its registers a thread (ptxas: 168 at 128 x 3,
-// 128 at 128 x 4, 96 at 192 x 3, 80 at 224 or 256 x 3). 128 x 3 is the
-// normal build: the widest shape whose factor does not spill. Other shapes
-// are measuring builds (sweep_launch_shapes.py at the repository root).
+// The register variants' block shape (reg and reg2): threads a block and
+// the blocks an SM they are compiled for, which set their registers a
+// thread (ptxas: 168 at 128 x 3, 128 at 128 x 4, 96 at 192 x 3, 80 at 224
+// or 256 x 3). 128 x 3 is the normal build: the widest shape whose factor
+// does not spill. Other shapes are measuring builds of reg
+// (sweep_launch_shapes.py at the repository root).
 #ifndef QM_SWEEP_REG_THREADS
 #define QM_SWEEP_REG_THREADS 128
 #endif
@@ -87,10 +105,10 @@
 #define QM_SWEEP_REG_BLOCKS 3
 #endif
 
-// The reg variant's node loads: node k-1's data is copied with cp.async
-// into a second buffer set while node k computes. The measuring build
-// -DQM_SWEEP_SYNC_LOADS loads each node at its start instead, as the smem
-// variant does (sweep_launch_shapes.py times the two).
+// The register variants' node loads: node k-1's data is copied with
+// cp.async into a second buffer set while node k computes. The measuring
+// build -DQM_SWEEP_SYNC_LOADS loads each node at its start instead, as the
+// smem variant does (sweep_launch_shapes.py times the two on reg).
 #ifdef QM_SWEEP_SYNC_LOADS
 constexpr bool kRegAsyncLoads = false;
 #else
@@ -114,12 +132,15 @@ constexpr bool kRegAsyncLoads = true;
 
 namespace {
 
+enum Variant { kSmem = 0, kReg = 1, kReg2 = 2 };  // a template argument of the kernel
+
 constexpr int kThreads = 256;  // smem variant's block
 constexpr int kWarp = 32;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMaxDim = 36;    // smem variant: rows live in lanes lane and lane + 32
+constexpr int kMaxDim = 36;    // smem and reg2: rows live in lanes lane and lane + 32
 constexpr int kRegMaxNu = 32;  // reg variant: Quu in one warp's registers, a row a lane
 constexpr int kNP = 32;        // its padded size (rows nu..31 are identity)
+constexpr int kNP2 = kMaxDim;  // reg2's padded size (rows nu..35 identity)
 constexpr int kColsPerWarp = (kMaxDim + 1 + kWarps - 1) / kWarps;  // nx + 1 right-hand sides
 constexpr int kSlack = 8;  // floats after the last buffer, for tile over-reads
 constexpr int kRowsPerWarp = (kMaxDim - 1 + kWarps - 1) / kWarps;   // trailing rows of a pivot
@@ -159,15 +180,21 @@ __device__ __forceinline__ void tile_tn(const float* X, int ldx, const float* Y,
   }
 }
 
-// The shared buffers of one block (smem_floats() floats): the reg
-// variant's L, twice (sLt by columns, sL by rows, 16-byte aligned); one set
-// of node buffers, or two when the loads run a node ahead (`sets`, node k
-// in set k & 1); then the buffers every node shares.
+// The shared buffers of one block (smem_floats<V>() floats) for variant V:
+// the register variants' L, twice (sLt by columns, sL by rows, 16-byte
+// aligned; reg2's F lies in it); one set of node buffers, or two when the
+// loads run a node ahead (`sets`, node k in set k & 1); then the buffers
+// every node shares.
+template <int V>
 struct Layout {
+  static constexpr int kPad = V == kReg2 ? kNP2 : kNP;  // L's padded size
+  static constexpr int kFactor = V == kSmem ? 0 : chol_warp::factor_floats<kPad>();
+  static constexpr bool kFInL = V == kReg2;  // F in L's buffer (dead once factored)
+
   int nx, nu, nxx, nxu, nuu;
   int ldf;  // F's odd row stride: lanes walking a column hit distinct banks
   int m;    // right-hand sides [Qux | Qu]
-  float *sLt, *sL;  // reg: L by columns and by rows
+  float *sLt, *sL;  // reg, reg2: L by columns and by rows
   // node buffers, of the set `set`
   float *A, *Bm;    // nx x nx, nx x nu
   float *lxx;       // nx x nx
@@ -189,15 +216,16 @@ struct Layout {
     return 2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu;
   }
   __host__ __device__ static int shared_floats(int nx, int nu) {
-    return 3 * nx * nx + nx * nu + nu * (nu | 1) + nu * (nx + 1) + 2 * nx + 2 * nu;
+    return 3 * nx * nx + nx * nu + (kFInL ? 0 : nu * (nu | 1)) + nu * (nx + 1) + 2 * nx +
+           2 * nu;
   }
 
-  __device__ __forceinline__ Layout(float* sm, int nx_, int nu_, bool reg, int sets, int set)
+  __device__ __forceinline__ Layout(float* sm, int nx_, int nu_, int sets, int set)
       : nx(nx_), nu(nu_), nxx(nx_ * nx_), nxu(nx_ * nu_), nuu(nu_ * nu_), ldf(nu_ | 1),
         m(nx_ + 1) {
     sLt = sm;
-    sL = sLt + kNP * kNP;
-    float* base = sm + (reg ? chol_warp::factor_floats<kNP>() : 0);
+    sL = sLt + kPad * kPad;
+    float* base = sm + kFactor;
     A = base + set * set_floats(nx, nu);
     Bm = A + nxx;
     lxx = Bm + nxu;
@@ -210,8 +238,8 @@ struct Layout {
     SA = S + nxx;
     Qxx = SA + nxx;
     SB = Qxx + nxx;
-    F = SB + nxu;
-    X = F + nu * ldf;
+    F = kFInL ? sm : SB + nxu;
+    X = kFInL ? SB + nxu : F + nu * ldf;
     s = X + nu * m;
     Sd = s + nx;
     invd = Sd + nx;
@@ -219,15 +247,16 @@ struct Layout {
   }
 };
 
-__host__ __device__ inline int smem_floats(int nx, int nu, bool reg, int sets) {
-  return (reg ? chol_warp::factor_floats<kNP>() : 0) + sets * Layout::set_floats(nx, nu) +
-         Layout::shared_floats(nx, nu) + kSlack;
+template <int V>
+__host__ __device__ inline int smem_floats(int nx, int nu, int sets) {
+  return Layout<V>::kFactor + sets * Layout<V>::set_floats(nx, nu) +
+         Layout<V>::shared_floats(nx, nu) + kSlack;
 }
 
 // The whole block copies node `node`'s data into the node buffers of `at`
 // with 4-byte cp.async (coalesced; any alignment) and commits the group.
-template <int kT>
-__device__ __forceinline__ void prefetch_node(const Layout& at, const float* gA, const float* gB,
+template <int kT, class L>
+__device__ __forceinline__ void prefetch_node(const L& at, const float* gA, const float* gB,
                                               const float* gd, const float* glx,
                                               const float* glu, const float* glxx,
                                               const float* gluu, const float* glux,
@@ -246,7 +275,7 @@ __device__ __forceinline__ void prefetch_node(const Layout& at, const float* gA,
   chol_warp::cp_async_commit();
 }
 
-// v, which the compiler must treat as unknown in the reg variant. Each node
+// v, which the compiler must treat as unknown in the register variants. Each node
 // and its S update carve the Layout from opaque dims, so no pointer, stride
 // or tile origin derived from them is hoisted out of the node loop and held
 // in a register over the factor and solve, which need the registers.
@@ -257,11 +286,10 @@ __device__ __forceinline__ int opaque(int v) {
 }
 
 // 3 blocks an SM: the 384 scenarios of the solver's path then run in one
-// wave on 132 SMs. kReg selects the reg variant's Cholesky and solve
-// (nu <= 32), else the smem variant's.
-template <bool kSym, bool kReg>
-__global__ void __launch_bounds__(kReg ? QM_SWEEP_REG_THREADS : kThreads,
-                                  kReg ? QM_SWEEP_REG_BLOCKS : 3)
+// wave on 132 SMs. V selects the variant's Cholesky and solve (Variant).
+template <bool kSym, int V>
+__global__ void __launch_bounds__(V == kSmem ? kThreads : QM_SWEEP_REG_THREADS,
+                                  V == kSmem ? 3 : QM_SWEEP_REG_BLOCKS)
 riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
                    const float* __restrict__ gd, const float* __restrict__ glx,
                    const float* __restrict__ glu, const float* __restrict__ glxx,
@@ -269,8 +297,9 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
                    const float* __restrict__ glxx_f, const float* __restrict__ glx_f,
                    float* __restrict__ gK, float* __restrict__ gkff,
                    int N, int nx_in, int nu_in, float shift, long long* clocks) {
-  constexpr int kT = kReg ? QM_SWEEP_REG_THREADS : kThreads;
-  constexpr bool kAsync = kReg && kRegAsyncLoads;
+  constexpr bool kRegs = V != kSmem;  // either register variant
+  constexpr int kT = kRegs ? QM_SWEEP_REG_THREADS : kThreads;
+  constexpr bool kAsync = kRegs && kRegAsyncLoads;
   constexpr int kSets = kAsync ? 2 : 1;
   extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.x;
@@ -282,7 +311,7 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 #endif
 
   {
-    const Layout lay(sm, nx_in, nu_in, kReg, kSets, (N - 1) & (kSets - 1));
+    const Layout<V> lay(sm, nx_in, nu_in, kSets, (N - 1) & (kSets - 1));
     const float* Sf = glxx_f + (size_t)b * lay.nxx;
     for (int idx = tid; idx < lay.nxx; idx += kT) {
       const int i = idx / lay.nx, j = idx - i * lay.nx;
@@ -295,11 +324,11 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 
   for (int k = N - 1; k >= 0; --k) {
     const size_t node = (size_t)b * N + k;
-    const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg, kSets, k & (kSets - 1));
+    const Layout<V> lay(sm, opaque<kRegs>(nx_in), opaque<kRegs>(nu_in), kSets, k & (kSets - 1));
     // --- the previous node's carry: S <- Qxx + 1/2 (M + M^T), M = Qux^T K in
     // S; and this node's data in shared memory: waited for, with the next
-    // node's copies set off into the other set (reg), or loaded coalesced
-    // (smem, and the reg variant's -DQM_SWEEP_SYNC_LOADS) -------------------
+    // node's copies set off into the other set (reg, reg2), or loaded
+    // coalesced (smem, and the register variants' -DQM_SWEEP_SYNC_LOADS) ---
     if (k < N - 1) {
       for (int idx = tid; idx < lay.nxx; idx += kT) {
         const int i = idx / lay.nx, j = idx - i * lay.nx;
@@ -313,7 +342,7 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
       chol_warp::cp_async_wait<0>();  // this thread's copies of node k
       __syncthreads();                 // everyone's; set (k - 1) & 1 is free
       if (k > 0) {
-        const Layout next(sm, lay.nx, lay.nu, true, kSets, (k - 1) & 1);
+        const Layout<V> next(sm, lay.nx, lay.nu, kSets, (k - 1) & 1);
         prefetch_node<kT>(next, gA, gB, gd, glx, glu, glxx, gluu, glux, node - 1, tid);
       }
     } else {
@@ -430,20 +459,33 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
     }
     __syncthreads(); PHASE(2);
 
-    if constexpr (kReg) {
+    if constexpr (kRegs) {
       // --- Cholesky and solve on chol_warp.cuh's register routines: warp 0
-      // factors Quu (lane i row i, padded to kNP with identity rows) and
-      // stores L; then lane c of warps 0 .. nsolve-1 solves column c of
-      // [Qux | Qu] (m <= 32: warp 0 alone, no barrier; m > 32: warps 0 and 1
-      // behind a 64-thread named barrier). No barrier per pivot.
+      // factors Quu (reg: lane i row i, padded to 32; reg2: lane i row i,
+      // rows 32..35 by columns, padded to 36; identity rows past nu) and
+      // stores L; then
+      // lane c of warps 0 .. nsolve-1 solves column c of [Qux | Qu] (m <=
+      // 32: warp 0 alone, no barrier; m > 32: warps 0 and 1 behind a
+      // 64-thread named barrier). No barrier per pivot.
+      constexpr int NP = Layout<V>::kPad;
       const int nsolve = (lay.m + kWarp - 1) / kWarp;
       if (warp < nsolve) {
         if (warp == 0) {
-          float a[kNP];
-          float ivd = 1.0f;
-          chol_warp::load_rows_ld<kNP>(a, lay.F, lay.nu, lay.ldf, lane);
-          chol_warp::factor_lean<kNP>(a, ivd, lane);
-          chol_warp::store_factor_lean<kNP>(a, ivd, lay.sLt, lay.sL, lane);
+          if constexpr (V == kReg) {
+            float a[kNP];
+            float ivd = 1.0f;
+            chol_warp::load_rows_ld<kNP>(a, lay.F, lay.nu, lay.ldf, lane);
+            chol_warp::factor_lean<kNP>(a, ivd, lane);
+            chol_warp::store_factor_lean<kNP>(a, ivd, lay.sLt, lay.sL, lane);
+          } else {
+            constexpr int T = kNP2 - kWarp;  // rows 32..35, held by columns
+            float a[kWarp], t[T], c[T][T], ivc[T];
+            float ivd = 1.0f;
+            chol_warp::load_rows_tail<T>(a, t, c, lay.F, lay.nu, lay.ldf, lane);
+            __syncwarp();  // F lies in L's buffer: every lane has read it before L is stored
+            chol_warp::factor_tail<T>(a, t, c, ivd, ivc, lane);
+            chol_warp::store_factor_tail<T>(a, t, c, ivd, ivc, lay.sLt, lay.sL, lane);
+          }
           PHASE(3);
         }
         if (nsolve > 1)
@@ -451,14 +493,14 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
         else
           __syncwarp();
         const int c = warp * kWarp + lane;
-        float z[kNP];
+        float z[NP];
 #pragma unroll
-        for (int r = 0; r < kNP; ++r)
+        for (int r = 0; r < NP; ++r)
           z[r] = (c < lay.m && r < lay.nu) ? lay.X[r * lay.m + c] : 0.0f;
-        chol_warp::solve_lean<kNP>(z, lay.sLt, lay.sL);
+        chol_warp::solve_lean<NP>(z, lay.sLt, lay.sL);
         if (c < lay.m) {
 #pragma unroll
-          for (int r = 0; r < kNP; ++r)
+          for (int r = 0; r < NP; ++r)
             if (r < lay.nu) lay.X[r * lay.m + c] = z[r];
         }
       }
@@ -567,8 +609,8 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
     // next node's load), s <- Qx + Qux^T kff; on a layout carved anew (see
     // opaque) -----------------------------------------------------------------
     {
-      const Layout lay(sm, opaque<kReg>(nx_in), opaque<kReg>(nu_in), kReg, kSets,
-                       k & (kSets - 1));
+      const Layout<V> lay(sm, opaque<kRegs>(nx_in), opaque<kRegs>(nu_in), kSets,
+                          k & (kSets - 1));
       for (int idx = tid; idx < lay.nxu; idx += kT) {
         const int i = idx / lay.nx, j = idx - i * lay.nx;
         gK[node * lay.nxu + idx] = -lay.X[i * lay.m + j];
@@ -607,31 +649,59 @@ riccati_bwd_kernel(const float* __restrict__ gA, const float* __restrict__ gB,
 }
 
 
-template <bool kReg>
+// The nu range variant V takes: reg 1..32, reg2 33..36, smem 1..36.
+constexpr int max_nu(int V) { return V == kReg ? kRegMaxNu : kMaxDim; }
+constexpr int min_nu(int V) { return V == kReg2 ? kRegMaxNu + 1 : 1; }
+
+// Variant V's kernel for (nx, nu, symmetrize) and its dynamic shared memory,
+// with the kernel's shared-memory limit raised to it where it passes 48 KB.
+// Returns 0, cudaErrorInvalidValue for a shape V does not take, or the CUDA
+// error of the attribute call.
+template <int V>
+int prepare(int nx, int nu, int symmetrize, const void** fn, size_t* smem) {
+  if (nx < 1 || nu < min_nu(V) || nx > kMaxDim || nu > max_nu(V))
+    return (int)cudaErrorInvalidValue;
+  const int sets = V != kSmem && kRegAsyncLoads ? 2 : 1;
+  *smem = (size_t)smem_floats<V>(nx, nu, sets) * sizeof(float);
+  *fn = symmetrize ? (const void*)riccati_bwd_kernel<true, V>
+                   : (const void*)riccati_bwd_kernel<false, V>;
+  if (*smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)*smem);
+  return 0;
+}
+
+template <int V>
 int launch(const float* A, const float* B, const float* d, const float* lx, const float* lu,
            const float* lxx, const float* luu, const float* lux, const float* lxx_f,
            const float* lx_f, float* K, float* kff, int batch, int N, int nx, int nu,
            float shift, int symmetrize, void* stream, long long* clocks) {
-  if (batch < 0 || N < 1 || nx < 1 || nu < 1 || nx > kMaxDim || nu > (kReg ? kRegMaxNu : kMaxDim))
-    return (int)cudaErrorInvalidValue;
-  if (batch == 0) return 0;
-  constexpr int kT = kReg ? QM_SWEEP_REG_THREADS : kThreads;
-  const int sets = kReg && kRegAsyncLoads ? 2 : 1;
-  const size_t smem = (size_t)smem_floats(nx, nu, kReg, sets) * sizeof(float);
-  const void* fn = symmetrize ? (const void*)riccati_bwd_kernel<true, kReg>
-                              : (const void*)riccati_bwd_kernel<false, kReg>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (batch < 0 || N < 1) return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  const int err = prepare<V>(nx, nu, symmetrize, &fn, &smem);
+  if (err != 0 || batch == 0) return err;
+  constexpr int kT = V == kSmem ? kThreads : QM_SWEEP_REG_THREADS;
   if (symmetrize)
-    riccati_bwd_kernel<true, kReg><<<batch, kT, smem, (cudaStream_t)stream>>>(
+    riccati_bwd_kernel<true, V><<<batch, kT, smem, (cudaStream_t)stream>>>(
         A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, N, nx, nu, shift, clocks);
   else
-    riccati_bwd_kernel<false, kReg><<<batch, kT, smem, (cudaStream_t)stream>>>(
+    riccati_bwd_kernel<false, V><<<batch, kT, smem, (cudaStream_t)stream>>>(
         A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, N, nx, nu, shift, clocks);
   return (int)cudaGetLastError();
+}
+
+// The blocks an SM of variant V's kernel at (nx, nu), as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor counts them on the current
+// device for its block and shared memory.
+template <int V>
+int blocks_per_sm(int nx, int nu, int symmetrize, int* blocks) {
+  const void* fn = nullptr;
+  size_t smem = 0;
+  const int err = prepare<V>(nx, nu, symmetrize, &fn, &smem);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fn, V == kSmem ? kThreads : QM_SWEEP_REG_THREADS, smem);
 }
 
 }  // namespace
@@ -640,27 +710,28 @@ int launch(const float* A, const float* B, const float* d, const float* lx, cons
 // (batch, N, nx), lu (batch, N, nu), lxx (batch, N, nx, nx), luu (batch, N,
 // nu, nu), lux (batch, N, nu, nx), lxx_f (batch, nx, nx), lx_f (batch, nx);
 // outputs K (batch, N, nu, nx), kff (batch, N, nu). symmetrize != 0 runs K2,
-// 0 runs K3c. One entry point a variant: reg takes nx <= 36 and nu <= 32,
-// smem nx, nu <= 36 (ops/riccati_fused.py:sweep_variant picks one by
-// shape). `clocks` (6 int64, or NULL) is written by the diagnostic build
-// only. Launches on `stream` and returns cudaGetLastError() (0 on success),
-// or cudaErrorInvalidValue for shapes the variant does not take.
-extern "C" int qm_riccati_bwd_reg_f32(const float* A, const float* B, const float* d,
-                                      const float* lx, const float* lu, const float* lxx,
-                                      const float* luu, const float* lux, const float* lxx_f,
-                                      const float* lx_f, float* K, float* kff, int batch, int N,
-                                      int nx, int nu, float shift, int symmetrize, void* stream,
-                                      long long* clocks) {
-  return launch<true>(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, batch, N, nx, nu,
-                      shift, symmetrize, stream, clocks);
-}
+// 0 runs K3c. One entry point a variant, all nx <= 36: reg takes nu <= 32,
+// reg2 32 < nu <= 36, smem nu <= 36 (ops/riccati_fused.py:sweep_variant
+// picks reg or reg2 by shape). `clocks` (6 int64, or NULL) is written by
+// the diagnostic build only. Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
+// the variant does not take.
+#define QM_SWEEP_ENTRY(name, V)                                                               \
+  extern "C" int qm_riccati_bwd_##name##_f32(                                                 \
+      const float* A, const float* B, const float* d, const float* lx, const float* lu,       \
+      const float* lxx, const float* luu, const float* lux, const float* lxx_f,               \
+      const float* lx_f, float* K, float* kff, int batch, int N, int nx, int nu, float shift, \
+      int symmetrize, void* stream, long long* clocks) {                                      \
+    return launch<V>(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, batch, N, nx, nu,   \
+                     shift, symmetrize, stream, clocks);                                      \
+  }                                                                                           \
+  /* the blocks an SM of the variant's kernel at (nx, nu) into *blocks; */                    \
+  /* returns 0 or the CUDA error (cudaErrorInvalidValue: a shape it refuses) */               \
+  extern "C" int qm_riccati_bwd_##name##_blocks_per_sm(int nx, int nu, int symmetrize,        \
+                                                       int* blocks) {                         \
+    return blocks_per_sm<V>(nx, nu, symmetrize, blocks);                                      \
+  }
 
-extern "C" int qm_riccati_bwd_smem_f32(const float* A, const float* B, const float* d,
-                                       const float* lx, const float* lu, const float* lxx,
-                                       const float* luu, const float* lux, const float* lxx_f,
-                                       const float* lx_f, float* K, float* kff, int batch, int N,
-                                       int nx, int nu, float shift, int symmetrize, void* stream,
-                                       long long* clocks) {
-  return launch<false>(A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f, K, kff, batch, N, nx, nu,
-                       shift, symmetrize, stream, clocks);
-}
+QM_SWEEP_ENTRY(reg, kReg)
+QM_SWEEP_ENTRY(reg2, kReg2)
+QM_SWEEP_ENTRY(smem, kSmem)

@@ -2,25 +2,32 @@
 ``qm_door_tpu/ops/pallas_riccati.py:riccati_backward_fused``).
 
 The CUDA kernel is ``qm_door_torch/csrc/riccati_bwd.cu``: one block per
-scenario (128 threads on the ``reg`` variant the solver's path runs, 256 on
-the ``smem`` variant) keeps the carry (S, s) in shared memory over the N
-nodes and writes only K and kff back; the source note has the bound and the
-design. The same kernel, compiled without the input symmetrization, is K3c
+scenario (128 threads on the ``reg`` and ``reg2`` variants the solver's
+paths run, 256 on the ``smem`` variant) keeps the carry (S, s) in shared
+memory over the N nodes and writes only K and kff back; the source note has
+the bound and the design. The same kernel, compiled without the input symmetrization, is K3c
 (``ops/lq.py:riccati_backward_ll``), so the sweep's launch and its plain
 version live here and serve both.
 
-The kernel has two variants, which differ only in the Cholesky and solve of
-each node's gain, and :func:`sweep_variant` picks one from the shape alone:
+The kernel has three variants, which differ only in the Cholesky and solve
+of each node's gain (and the shared memory that follows from it), and
+:func:`sweep_variant` picks ``reg`` or ``reg2`` from the shape alone:
 
-- ``reg`` (nu <= 32, the solver's 30/30), 128-thread blocks: one warp
-  factors Quu in registers with shuffles (lane i row i, on
+- ``reg`` (nu <= 32, the solver's 30/30), 128-thread blocks at 3 an SM:
+  one warp factors Quu in registers with shuffles (lane i row i, on
   ``csrc/chol_warp.cuh``'s register-lean routines), then solves the nx + 1
   right-hand sides with a column a lane (a second warp for nx + 1 > 32);
   the next node's data is copied (cp.async) into a second set of buffers
   while this node computes;
-- ``smem`` (32 < nu <= 36, up to the force-tracking width), 256-thread
-  blocks: the whole block factors Quu in shared memory with one barrier a
-  pivot.
+- ``reg2`` (32 < nu <= 36, the force-tracking width): ``reg``'s block,
+  loads and phases; the factoring warp holds rows 0..31 a row a lane and
+  rows 32..35 by columns (padded to 36), and the solve runs a column a lane
+  at 36; Quu shares L's shared buffer, so 3 blocks an SM still fit at
+  30/36;
+- ``smem`` (nu <= 36; the first kernel), 256-thread blocks: the whole block
+  factors Quu in shared memory with one barrier a pivot. Nothing picks it:
+  only ``launch_sweep(..., variant="smem")`` reaches it, to time it beside
+  ``reg2`` on the card.
 
 :func:`riccati_backward_fused` launches the chosen variant for CUDA tensors
 (contiguous float32, nx, nu <= 36) and raises for anything it cannot take;
@@ -41,7 +48,9 @@ from .spd_solve import spd_solve_plain
 
 MAX_DIM = 36
 REG_MAX_NU = 32  # the reg variant holds Quu in one warp, a row a lane
-VARIANTS = ("reg", "smem")
+VARIANTS = ("reg", "reg2", "smem")
+# the nu each variant takes (nx <= MAX_DIM for all); sweep_variant never picks smem
+NU_RANGE = {"reg": (1, REG_MAX_NU), "reg2": (REG_MAX_NU + 1, MAX_DIM), "smem": (1, MAX_DIM)}
 
 
 def _sym(M):
@@ -124,10 +133,10 @@ def check_sweep_shapes(name, A, B, d, lx, lu, lxx, luu, lux, lxx_f, lx_f):
 
 def sweep_variant(nx: int, nu: int) -> str:
     """The sweep variant for nx states and nu inputs: "reg" for nu <= 32,
-    "smem" for 32 < nu <= 36; ValueError above 36."""
+    "reg2" for 32 < nu <= 36; ValueError above 36."""
     if nx > MAX_DIM or nu > MAX_DIM:
         raise ValueError(f"sweep: nx = {nx}, nu = {nu}; the kernel takes at most {MAX_DIM}")
-    return "reg" if nu <= REG_MAX_NU else "smem"
+    return "reg" if nu <= REG_MAX_NU else "reg2"
 
 
 PHASE_CLOCKS = "QM_SWEEP_PHASE_CLOCKS"  # the diagnostic build's define
@@ -147,21 +156,46 @@ def kernel_fn(variant: str, defines=()):
     return _fns[key]
 
 
+def variant_for(name: str, nx: int, nu: int, forced=None) -> str:
+    """The variant a launch of (nx, nu) runs: :func:`sweep_variant`'s, or
+    ``forced`` where it takes the shape; ValueError otherwise (the C entry
+    points refuse the same shapes)."""
+    chosen = sweep_variant(nx, nu)  # raises above MAX_DIM
+    if forced is None:
+        return chosen
+    if forced not in VARIANTS:
+        raise ValueError(f"{name}: no sweep variant {forced!r}")
+    low, high = NU_RANGE[forced]
+    if not low <= nu <= high:
+        raise ValueError(f"{name}: the {forced} variant takes {low} <= nu <= {high}, "
+                         f"not nu = {nu}")
+    return forced
+
+
+def blocks_per_sm(variant: str, nx: int, nu: int, symmetrize: bool = True) -> int:
+    """Blocks an SM of a sweep variant's kernel at (nx, nu) on the current
+    CUDA device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor counts
+    them for its block and shared memory (the normal build)."""
+    fn = getattr(load("riccati_bwd"), f"qm_riccati_bwd_{variant}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    check_launch("sweep occupancy query", fn(nx, nu, int(symmetrize), ctypes.byref(blocks)),
+                 f" of nx = {nx}, nu = {nu} ({variant})")
+    return blocks.value
+
+
 def launch_sweep(wrapper, args, shift: float, symmetrize: bool, variant=None):
     """Launch the sweep variant :func:`sweep_variant` names on CUDA tensors
     ``args`` (checked by the caller) and count the launch on
     ``wrapper.launches`` and ``wrapper.launches_by_variant``. ``variant``
-    forces one (to time it beside the other on the card); the wrappers never
-    pass it."""
+    forces one (to time it beside another on the card, ``smem`` among
+    them); the wrappers never pass it. A shape the variant does not take
+    raises ValueError before anything reaches the card."""
     name = wrapper.__name__
     A, B = args[0], args[1]
     Bb, N, nx, nu = B.shape
-    if nx > MAX_DIM or nu > MAX_DIM:
-        raise ValueError(f"{name}: nx = {nx}, nu = {nu}; the kernel takes at most {MAX_DIM}")
-    if variant is None:
-        variant = sweep_variant(nx, nu)
-    elif variant not in VARIANTS:
-        raise ValueError(f"{name}: no sweep variant {variant!r}")
+    variant = variant_for(name, nx, nu, variant)
     K = torch.empty((Bb, N, nu, nx), dtype=A.dtype, device=A.device)
     kff = torch.empty((Bb, N, nu), dtype=A.dtype, device=A.device)
     if Bb == 0:

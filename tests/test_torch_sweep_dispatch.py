@@ -2,8 +2,9 @@
 (qm_door_torch/ops/riccati_fused.py:sweep_variant), shared by K2
 (riccati_backward_fused) and K3c (lq.riccati_backward_ll): the register
 variant takes the main path's 30/30 and every nu <= 32 (nx up to 36, where
-nx + 1 = 37 right-hand sides take a second solving warp), the shared-memory
-variant 32 < nu <= 36, and nothing above 36 is taken. On the CPU nothing
+nx + 1 = 37 right-hand sides take a second solving warp), the two-rows-a-
+lane register variant (reg2) 32 < nu <= 36, and nothing above 36 is taken.
+The block-parallel kernel (smem) is never chosen, only forced. On the CPU nothing
 launches: no variant is counted. The variants themselves run only on the
 card, where chip_smoke.py holds each against the f64 plain sweep."""
 import numpy as np
@@ -19,11 +20,22 @@ def test_main_path_shape_takes_the_register_variant():
 
 
 @pytest.mark.parametrize("nx, nu, variant", [
-    (30, 1, "reg"), (30, 32, "reg"), (30, 33, "smem"), (30, 36, "smem"), (1, 1, "reg"),
-    (7, 4, "reg"), (36, 36, "smem")])
+    (30, 1, "reg"), (30, 32, "reg"), (30, 33, "reg2"), (30, 36, "reg2"), (1, 1, "reg"),
+    (7, 4, "reg"), (36, 36, "reg2")])
 def test_boundaries(nx, nu, variant):
     assert rf.REG_MAX_NU == 32 and rf.MAX_DIM == 36
     assert rf.sweep_variant(nx, nu) == variant
+
+
+def test_the_smem_variant_is_only_forced():
+    """sweep_variant names reg or reg2 for every shape the kernel takes; smem
+    stays in VARIANTS only to be forced, and takes every nu <= 36 then."""
+    chosen = {rf.sweep_variant(nx, nu) for nx in range(1, 37) for nu in range(1, 37)}
+    assert chosen == {"reg", "reg2"}
+    assert set(rf.VARIANTS) == chosen | {"smem"}
+    for nu in (1, 30, 33, 36):
+        assert rf.variant_for("sweep", 30, nu) == rf.sweep_variant(30, nu)
+        assert rf.variant_for("sweep", 30, nu, "smem") == "smem"
 
 
 @pytest.mark.parametrize("nx, nu", [(30, 37), (37, 30), (37, 4)])
@@ -75,10 +87,28 @@ def test_cpu_tensors_count_no_launch_and_no_variant():
         assert all(type(v) is int and v == 0 for v in counts.values())
 
 
-@pytest.mark.parametrize("shape, variant", [((2, 3, 7, 4), "warp"), ((1, 2, 30, 37), None)])
+@pytest.mark.parametrize("nu", [33, 36])
+def test_reg2_shapes_on_the_cpu_run_the_plain_sweep_and_count_nothing(nu):
+    """At reg2's widths (30/36 is the force-tracking path's) both wrappers
+    are the plain sweep on the CPU and count no launch of any variant."""
+    wrappers = (rf.riccati_backward_fused, tl.riccati_backward_ll)
+    before = [(w.launches, dict(w.launches_by_variant)) for w in wrappers]
+    args = _data(2, 3, 30, nu)
+    for got, want in zip(rf.riccati_backward_fused(*args, shift=1e-3),
+                         rf.sweep_plain(*args, 1e-3, symmetrize=True)):
+        assert got.shape in ((2, 3, nu, 30), (2, 3, nu)) and torch.equal(got, want)
+    for got, want in zip(tl.riccati_backward_ll(*args), rf.sweep_plain(*args, 0.0, False)):
+        assert torch.equal(got, want)
+    assert [(w.launches, w.launches_by_variant) for w in wrappers] == before
+
+
+@pytest.mark.parametrize("shape, variant", [
+    ((2, 3, 7, 4), "warp"), ((1, 2, 30, 37), None), ((1, 2, 30, 30), "reg2"),
+    ((1, 2, 30, 32), "reg2"), ((1, 2, 30, 37), "reg2"), ((1, 2, 30, 33), "reg")])
 def test_the_launch_refuses_before_touching_the_card(shape, variant):
-    """An unknown forced variant and nu = 37 raise ValueError before any
-    CUDA call (so here, on CPU tensors) and count nothing."""
+    """An unknown forced variant, nu = 37, a forced reg2 at nu <= 32 or
+    nu > 36 and a forced reg at nu > 32 raise ValueError before any CUDA
+    call (so here, on CPU tensors) and count nothing."""
     before = (rf.riccati_backward_fused.launches,
               dict(rf.riccati_backward_fused.launches_by_variant))
     with pytest.raises(ValueError):

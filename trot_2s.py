@@ -2,7 +2,7 @@
 """The full 2 s canonical trot of the torch port on one NVIDIA GPU, held to
 all 1000 rows of the golden trace (docs/artifacts/trot_2s_trace.jsonl).
 
-    python3 trot_2s.py
+    python3 trot_2s.py [--height-offset METRES]
 
 Builds K1 (qm_door_torch/csrc/spd_solve.cu), then runs chip_smoke.py's
 phase (j) trot (ClosedLoopRunner on tools/record_trace.py:
@@ -18,8 +18,13 @@ time each). The f32 trot splits on rounding after the 1.40 s contact
 switch: JAX's own f32 run leaves the base band too when its spawn moves by
 a micrometre (python3 tests/torch_parity.py trot-swap none 2.0 1e-6), so
 a miss of that band alone does not single out the port; the bars stay
-those of JAX's unperturbed run.
+those of JAX's unperturbed run. --height-offset raises the spawn by that
+many metres (ClosedLoopRunner.run's start_height_offset, as
+tests/torch_parity.py trot-swap's offset raises JAX's), so the run can be
+repeated at the offsets where JAX's own f32 run stays inside every band
+(0.3 um, 10 um); the bars do not change with it.
 """
+import argparse
 import json
 import os
 import sys
@@ -37,6 +42,10 @@ TROT_2S_BARS = dict(chip_smoke.TROT_BANDS, tau_max=44.2)
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--height-offset", type=float, default=0.0,
+                        help="metres added to the spawn height (default 0)")
+    offset = parser.parse_args().height_offset
     import torch
 
     if not torch.cuda.is_available():
@@ -49,10 +58,11 @@ def main():
     for line in cuda_build.build("spd_solve", ()).splitlines():
         chip_smoke.log(f"nvcc spd_solve: {line}")
     row, result, _ = chip_smoke.phase_trot(torch.device("cuda", 0), 2.0, side=False,
-                                           bars=TROT_2S_BARS)
+                                           bars=TROT_2S_BARS, height_offset=offset)
     chip_smoke.log(f"total {time.time() - t0:.1f} s")
     chip_smoke.log(chip_smoke.card_line())
-    print(json.dumps({"ok": True, "golden": result["golden"], "wall_s": result["wall_s"],
+    print(json.dumps({"ok": True, "height_offset_m": offset, "golden": result["golden"],
+                      "wall_s": result["wall_s"],
                       "host_ms_median": result["host_ms_median"],
                       "k1_launches": result["launches"]["K1"],
                       "device": torch.cuda.get_device_name(0)}))
