@@ -108,7 +108,9 @@ Phases:
       SqpSolver.solve (nu = 30) and one warm-started from it, host ms and K1
       launches (68 a solve: 1 reg16 + 67 reg32), every K1 call of the two
       solves within 1e-4 of its f64 plain version, and each solution
-      against the same solve on the CPU in f64 within (c)'s bars.
+      against the same solve on the CPU in f64 within (c)'s bars. The CPU
+      f64 runs of (g)'s cross-precision checks are made meanwhile in two
+      spawned processes.
 
   (h) the whole-body cascade (wbc/wbc.py:hierarchical_wbc_batched, 36
       variables, and wbc/force.py:hierarchical_wbc_ft_batched, 42, with the
@@ -163,12 +165,30 @@ Phases:
       card's f32 run against the port's own f64 run on the CPU (computed
       meanwhile in two spawned processes, once the trot's timings are
       taken) at SIDE_BARS: the base pose, the leg and the arm joints.
+  (k) the door (sim/door_loop.py:DoorOpeningRunner) on the push door:
+      AlienGo+Z1, default_config() with the legs and the arm commanded from
+      t = 0, N = 67, f32, DoorScenario(t_reach=0.01, handle_ahead=0.0) for
+      0.04 s (40 coupled physics steps with the grasp spring and the panel
+      contact, 20 force-aware ticks, 2-iteration solves at t = 0 (cold and
+      warm), 10, 20 and 30 ms), every solve, tick and coupled step timed
+      between two synchronizes, one solve and one tick under
+      torch.profiler (the card's idle share) and their K1 calls held to
+      f64; K1 exactly 136 a solve (2 reg16 projections at 67 x 12 x 18, 134
+      reg64 gains at 1 x 36 x 31) and 101 a tick (reg64: 93 at 1 x 42 x 1,
+      4 at 1 x 36 x 42, 4 at 1 x 58 x 42), by variant and shape; held to
+      the JAX package's f64 trace of the same window
+      (docs/artifacts/door_press_trace.jsonl) at DOOR_BARS, the solves'
+      times and phases the trace's (press at 10, 20, 30 ms), the planned
+      wrench exactly 0 on the reach ticks and non-zero after the first
+      press solve, every violation within VIOLATION_MAX; K1 at the door's
+      five shapes timed beside its bound, its plain version and
+      torch.linalg.
 
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
 second time, on (g)'s force-tracking path; K1 at (h)'s six shapes; K1 on
-(i)'s path, a cycle's work; K1 on (j)'s path, a solve and five ticks); the
-last line is {"ok": true, "device": {...}}.
+(i)'s path, a cycle's work; K1 on (j)'s and (k)'s paths, a solve and five
+ticks each); the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -1699,9 +1719,12 @@ def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", **problem):
     import torch
 
     key = tuple(sorted(problem.items()))
+    gpu_f32 = cross_steps(dev, torch.float32, backend, problem)
     if key not in refs:
         refs[key] = cross_steps(torch.device("cpu"), torch.float64, "bm_k1", problem)
-    out = {"gpu_f32": cross_steps(dev, torch.float32, backend, problem), "cpu_f64": refs[key]}
+    if hasattr(refs[key], "result"):  # computed beside the card's runs (cross_reference)
+        refs[key] = refs[key].result()
+    out = {"gpu_f32": gpu_f32, "cpu_f64": refs[key]}
     dX = (out["gpu_f32"][0] - out["cpu_f64"][0]).abs().max().item()
     dU = (out["gpu_f32"][1] - out["cpu_f64"][1]).abs().max().item()
     dF = (out["gpu_f32"][1][..., :12] - out["cpu_f64"][1][..., :12]).abs().max().item()
@@ -1715,6 +1738,15 @@ def phase_cross_precision(dev, refs, backend="bm_k1", tag="c", **problem):
         raise RuntimeError(f"cross precision ({backend}, {problem}): max|dX| {dX:.3e} "
                            f"(<= {CROSS_DX_MAX}), max|dU| {dU:.3e} (<= {CROSS_DU_MAX})")
     return row
+
+
+def cross_reference(problem):
+    """cross_steps' CPU f64 run of a problem in a spawned process of
+    phase_force_tracking's, two torch threads."""
+    import torch
+
+    torch.set_num_threads(2)
+    return cross_steps(torch.device("cpu"), torch.float64, "bm_k1", problem)
 
 
 # launches a step of the force-tracking problem (nu = 36): the gain solves
@@ -1745,8 +1777,25 @@ def phase_force_tracking(dev, refs):
     drives bm_k1, the off-grasp wrench exactly 0, per-stage host ms and the
     card's idle share, (c)'s cross-precision check for each; K1's reg64
     variant at the gain shape and K2's reg2 variant on (g)'s warm iterate;
-    the other options; one SqpSolver.solve cold and warm. Returns the two
-    runs and the two kernel rows."""
+    the other options; one SqpSolver.solve cold and warm. The cross checks'
+    CPU f64 runs (the force-tracking problem and the options checked on
+    it) are computed meanwhile in two spawned processes (cross_reference),
+    so the host times of (g) carry their load. Returns the two runs and the
+    two kernel rows."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for problem in [dict(force_tracking=True)] + [
+                kw for kw, check in OPTIONS.values() if check == "cross"]:
+            key = tuple(sorted(problem.items()))
+            if key not in refs:
+                refs[key] = pool.submit(cross_reference, problem)
+        return force_tracking_runs(dev, refs)
+
+
+def force_tracking_runs(dev, refs):
+    """phase_force_tracking's work on the card."""
     import torch
 
     runs, rows, seconds, t0 = {}, {}, {}, time.time()
@@ -2713,13 +2762,14 @@ def trot_runner(dev, dtype, **runner_kw):
     return ClosedLoopRunner(model, cfg, schedule=sched, **runner_kw), targets
 
 
-def trot_k1_expect(solves, ticks, stack):
-    """K1's launches in `solves` solves and `ticks` ticks of a stack: by
-    variant, by (batch, n, m)."""
+def trot_k1_expect(solves, ticks, solve_k1, tick_k1):
+    """K1's launches in `solves` solves of `solve_k1`'s calls and `ticks`
+    ticks of `tick_k1`'s (each by (batch, n, m)): by variant, by (batch, n,
+    m)."""
     from qm_door_torch.ops.spd_solve import VARIANTS, k1_variant
 
     by_variant, by_shape = dict.fromkeys(VARIANTS, 0), {}
-    for calls, count in ((SOLVE_K1, solves), (TICK_K1[stack], ticks)):
+    for calls, count in ((solve_k1, solves), (tick_k1, ticks)):
         for (b, n, m), c in calls.items():
             by_variant[k1_variant(n, m)] += c * count
             by_shape[(b, n, m)] = by_shape.get((b, n, m), 0) + c * count
@@ -2745,20 +2795,19 @@ def golden_deviation(run_log, rows):
             "worst_t": {k: float(ref["t"][int(np.argmax(v))]) for k, v in by_row.items()}}
 
 
-def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26),
-              height_offset=0.0):
-    """One run of the runner on the card with the launch counters set to 0
-    just before and read just after: host ms of every solve, tick and
-    physics step (each call between two synchronizes), the card's busy ms
-    of the solve and the tick numbered `profile_at` (device_busy, the call
-    itself), and K1's calls of the solve and the tick numbered `record_at`
-    (k1_calls). `height_offset` (m) raises the spawn (ClosedLoopRunner.run's
-    start_height_offset). Returns (log, result dict, recorded calls by
-    "solve" / "tick")."""
+def run_timed(runner, run, step_at, profile_at=(5, 25), record_at=(6, 26)):
+    """One run (`run()`, returning the runner's log) of a single-robot runner
+    on the card with the launch counters set to 0 just before and read just
+    after: host ms of every solve, tick and physics step (each call between
+    two synchronizes; the step is the function `step_at` = (module, name)
+    the runner's loop calls), the card's busy ms of the solve and the tick
+    numbered `profile_at` (device_busy, the call itself), and K1's calls of
+    the solve and the tick numbered `record_at` (k1_calls). Returns (log,
+    result dict, recorded calls by "solve" / "tick", K1's launches by
+    shape)."""
     import torch
 
     from qm_door_torch.ops.spd_solve import spd_solve
-    from qm_door_torch.sim import closed_loop
     from qm_door_torch.solver import projection, riccati
     from qm_door_torch.wbc import hoqp, qp
 
@@ -2786,22 +2835,24 @@ def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26),
             return out
         return call
 
-    solve, tick, step = runner.solver.solve, runner.controller.tick, closed_loop.sim_step
+    step_module, step_name = step_at
+    solve, tick, step = runner.solver.solve, runner.controller.tick, getattr(step_module,
+                                                                             step_name)
     runner.solver.solve = timed("solve", solve, (riccati, projection))
     runner.controller.tick = timed("tick", tick, (qp, hoqp))
-    closed_loop.sim_step = timed("step", step, ())
+    setattr(step_module, step_name, timed("step", step, ()))
     try:
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        run_log = runner.run(targets, duration=seconds, start_height_offset=height_offset)
+        run_log = run()
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_launches()
         by_variant = dict(spd_solve.launches_by_variant)
         by_shape = dict(spd_solve.launches_by_shape)
     finally:
-        closed_loop.sim_step = step
+        setattr(step_module, step_name, step)
         del runner.solver.solve, runner.controller.tick
     # the profiled calls carry the profiler's cost: the shares use the
     # median unprofiled host time of their kind
@@ -2809,8 +2860,7 @@ def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26),
                                   if i != profile_at[k == "tick"] or k == "step"]))
               for k, v in host.items()}
     result = {
-        "seconds": seconds, "height_offset_m": height_offset, "wall_s": wall,
-        "safe": run_log.safe, "ticks": len(host["tick"]),
+        "wall_s": wall, "safe": run_log.safe, "ticks": len(host["tick"]),
         "solves": len(host["solve"]), "steps": len(host["step"]),
         "host_ms_median": median,
         "host_ms_mean": {k: float(np.mean(v)) for k, v in host.items()},
@@ -2826,10 +2876,12 @@ def run_timed(runner, targets, seconds, profile_at=(5, 25), record_at=(6, 26),
     return run_log, result, recorded, by_shape
 
 
-def check_trot_launches(result, by_shape, stack, label):
-    """K1 exactly SOLVE_K1 a solve and TICK_K1[stack] a tick, by variant and
+def check_trot_launches(result, by_shape, label, solve_k1=SOLVE_K1,
+                        tick_k1=TICK_K1["combined"]):
+    """K1 exactly `solve_k1` a solve and `tick_k1` a tick, by variant and
     shape, every other kernel 0."""
-    want_variant, want_shape = trot_k1_expect(result["solves"], result["ticks"], stack)
+    want_variant, want_shape = trot_k1_expect(result["solves"], result["ticks"], solve_k1,
+                                              tick_k1)
     total = sum(want_shape.values())
     want = {kid: total if kid == "K1" else 0 for kid in result["launches"]}
     if (result["launches"], result["k1_by_variant"], by_shape) != (want, want_variant,
@@ -2839,18 +2891,19 @@ def check_trot_launches(result, by_shape, stack, label):
                            f"{want_variant}, {want_shape}")
 
 
-def trot_kernel_row(recorded, by_shape, result):
-    """K1 on (j)'s path: each of the solve's and the tick's shapes timed on
-    its first recorded call (chained-call ms, the plain version's and
-    torch.linalg's ms, the bound); summed over one MPC period's work (a
-    solve and five ticks) like (i)'s row; the run's launches by shape."""
+def period_kernel_row(recorded, by_shape, result, solve_k1, tick_k1, tag, path):
+    """K1 on a single-robot path: each of the solve's and the tick's shapes
+    (`solve_k1`, `tick_k1`: calls by (batch, n, m)) timed on its first
+    recorded call (chained-call ms, the plain version's and torch.linalg's
+    ms, the bound); summed over one MPC period's work (a solve and five
+    ticks) like (i)'s row; the run's launches by shape."""
     import torch
 
     from qm_door_torch.ops.spd_solve import k1_variant, spd_solve, spd_solve_plain
 
     calls = recorded["solve"] + recorded["tick"]
-    per_period = {shape: c for shape, c in SOLVE_K1.items()}
-    for shape, c in TICK_K1["combined"].items():
+    per_period = dict(solve_k1)
+    for shape, c in tick_k1.items():
         per_period[shape] = per_period.get(shape, 0) + 5 * c
     shapes, sums = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                             bound_ms=0.0)
@@ -2872,15 +2925,15 @@ def trot_kernel_row(recorded, by_shape, result):
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         for key in sums:
             sums[key] += row[key] * per
-        log("[j] K1 " + json.dumps(row))
+        log(f"[{tag}] K1 " + json.dumps(row))
         shapes.append(row)
     return {
         "name": "spd_solve", "route": "cuda", "source": "qm_door_torch/csrc/spd_solve.cu",
-        "replaces": "qm_door_tpu/ops/pallas_chol.py:103", "path": "one robot ClosedLoopRunner",
+        "replaces": "qm_door_tpu/ops/pallas_chol.py:103", "path": path,
         "launches": result["launches"]["K1"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        # one MPC period's K1 work (a solve's 68 and five ticks' 505), in
-        # chained-call events
+        # one MPC period's K1 work (a solve and five ticks), in chained-call
+        # events
         **{k: sums[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "bound_by": "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
         "shapes": shapes}
@@ -2917,11 +2970,15 @@ def side_run(dev, label, reference, **runner_kw):
     reported."""
     import torch
 
+    from qm_door_torch.sim import closed_loop
+
     runner, targets = trot_runner(dev, torch.float32, **runner_kw)
-    run_log, result, _, by_shape = run_timed(runner, targets, SIDE_SECONDS,
-                                             profile_at=(-1, -1), record_at=(-1, -1))
+    run_log, result, _, by_shape = run_timed(
+        runner, lambda: runner.run(targets, duration=SIDE_SECONDS),
+        (closed_loop, "sim_step"), profile_at=(-1, -1), record_at=(-1, -1))
+    result["seconds"] = SIDE_SECONDS
     stack = "separated" if runner_kw.get("separated") else "combined"
-    check_trot_launches(result, by_shape, stack, f"(j) {label}")
+    check_trot_launches(result, by_shape, f"(j) {label}", tick_k1=TICK_K1[stack])
     ref_base, ref_joints, ref_safe = reference.result()
     base, joints = np.stack(run_log.base_pose), np.stack(run_log.x_obs)[:, 12:30]
     same_rows = base.shape == ref_base.shape
@@ -2987,11 +3044,15 @@ def trot_main(dev, seconds, rows, bars, height_offset=0.0):
     K1's row. Returns (row, result)."""
     import torch
 
+    from qm_door_torch.sim import closed_loop
+
     t0 = time.time()
     runner, targets = trot_runner(dev, torch.float32)
-    log_, result, recorded, by_shape = run_timed(runner, targets, seconds,
-                                                 height_offset=height_offset)
-    check_trot_launches(result, by_shape, "combined", "(j) trot")
+    log_, result, recorded, by_shape = run_timed(
+        runner, lambda: runner.run(targets, duration=seconds, start_height_offset=height_offset),
+        (closed_loop, "sim_step"))
+    result.update(seconds=seconds, height_offset_m=height_offset)
+    check_trot_launches(result, by_shape, "(j) trot")
     log("[j] trot host ms " + json.dumps({k: result[k] for k in (
         "wall_s", "ticks", "solves", "steps", "host_ms_median", "host_ms_mean",
         "device_idle_share")}))
@@ -2999,10 +3060,183 @@ def trot_main(dev, seconds, rows, bars, height_offset=0.0):
     k1 = {"solve": check_k1_calls(recorded["solve"], "in a (j) solve"),
           "tick": check_wbc_k1_calls(recorded["tick"], "in a (j) tick")}
     k1["tick"]["calls_by_shape"] = shape_keys(k1["tick"]["calls_by_shape"])
-    row = trot_kernel_row(recorded, by_shape, result)
+    row = period_kernel_row(recorded, by_shape, result, SOLVE_K1, TICK_K1["combined"], "j",
+                            "one robot ClosedLoopRunner")
     result.update(golden=golden, k1_calls_against_f64=k1, impl="torch", dtype="float32",
                   device=torch.cuda.get_device_name(0), phase_s=time.time() - t0)
     log("[j] trot " + json.dumps(result))
+    return row, result
+
+
+# (k) the door: sim/door_loop.py:DoorOpeningRunner on the push door at full
+# width, held to the JAX package's f64 trace of the same window
+DOOR_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
+                          "door_press_trace.jsonl")
+# 40 coupled physics steps, 20 ticks, the solves at t = 0 (cold and warm) and
+# at 10, 20 and 30 ms: the reach, then the press from t = 10 ms
+DOOR_SECONDS = 0.04
+# DoorScenario fields of (k)'s run: the press inside the window (the default
+# reach lasts 0.5 s) and the grasp spring relaxed at the start (handle at
+# the spawn EE position)
+DOOR_SCENARIO = {"t_reach": 0.01, "handle_ahead": 0.0}
+DOOR_TICK_FIELDS = ("t", "panel", "lever", "base_pose", "feet_z", "ee_pos", "ee_err",
+                    "wrench_plan")
+# a door solve is 2 SQP iterations (DoorOpeningRunner raises sqp_iterations
+# to 2): twice SOLVE_K1's calls at nu = 36, the gains on reg64; a
+# force-aware tick solves 93 Newton systems and two projectors' Grams
+DOOR_SOLVE_K1 = {(67, 12, 18): 2, (1, 36, 31): 134}
+DOOR_TICK_K1 = {(1, 42, 1): 93, (1, 36, 42): 4, (1, 58, 42): 4}
+# the solve and the tick profiled (device_busy) and recorded (k1_calls): a
+# press solve (t = 20 ms, 30 ms) and press ticks (t = 20 ms, 24 ms)
+DOOR_PROFILE_AT = (3, 10)
+DOOR_RECORD_AT = (4, 12)
+# The bars the card's f32 run is held to against the f64 trace, by field
+# (door_deviation): a band of TROT_BANDS where the JAX package's own f32 run
+# of the same window stays inside it on the CPU (t and the solves' t, base
+# xyz and rpy, EE), twice JAX's f32 deviation (rounded up) where the field
+# has no band (panel, lever, feet z, EE error, wrench). python3
+# tests/torch_parity.py door-bars 0.04: JAX's f32 run against its f64 run
+# (which is the trace exactly): t 0, panel 0 (latched throughout), lever
+# 1.811e-3 rad, base xyz 5.75e-4 m, rpy 3.04e-4 rad, feet z 5.48e-4 m, EE
+# 2.21e-4 m, EE error 2.17e-4 m, wrench 0.498 N, solve times 0, violation
+# 2.91e-10, the phases equal. The violation has no deviation bar: it is
+# a sum of squared defects (1.23e-7 after the first press solve), and in
+# f32 each defect rounds by ~0.5%, so the f32 runs land ~1e-9 from the f64
+# value by rounding alone (the card 1.28e-9 in its first run, JAX 2.9e-10);
+# each solve's violation is held to VIOLATION_MAX, as every f32 solve of
+# this script is.
+DOOR_BARS = {"t": TROT_BANDS["t"], "solve_t": TROT_BANDS["t"], "panel": 0.0, "lever": 3.63e-3,
+             "base_xyz": TROT_BANDS["base_xyz"], "base_rpy": TROT_BANDS["base_rpy"],
+             "feet_z": 1.10e-3, "ee": TROT_BANDS["ee"], "ee_err": 4.34e-4, "wrench": 0.997}
+
+
+def door_runner(dev, dtype):
+    """(k)'s set-up on the port: AlienGo+Z1, default_config() with the legs
+    and the arm commanded from t = 0 (as scenarios.make_scenario sets them
+    for the door), N = 67, the push door, DoorScenario(**DOOR_SCENARIO)."""
+    from qm_door_torch.config import default_config
+    from qm_door_torch.models.model import aliengo_z1
+    from qm_door_torch.sim.door_loop import DoorOpeningRunner, DoorScenario
+
+    cfg = default_config()
+    cfg.controller.leg_pd_start_time = -1.0
+    cfg.wbc.arm_init_time = -1.0
+    return DoorOpeningRunner(aliengo_z1(dtype=dtype, device=dev), cfg,
+                             scenario=DoorScenario(**DOOR_SCENARIO))
+
+
+def door_rows(run_log):
+    """A DoorLog as the trace's rows (JSON-ready): one a tick with the
+    fields DOOR_TICK_FIELDS, then one a solve after t = 0 (its t, phase and
+    violation), then whether every tick was safe."""
+    rows = [dict(kind="tick", **{k: np.asarray(getattr(run_log, k)[i], dtype=np.float64)
+                                 .tolist() for k in DOOR_TICK_FIELDS})
+            for i in range(len(run_log.t))]
+    rows += [dict(kind="solve", t=float(t), phase=phase, viol=float(viol))
+             for t, phase, viol in zip(run_log.mpc_t, run_log.mpc_phase, run_log.mpc_viol)]
+    return rows + [dict(kind="safe", safe=bool(run_log.safe))]
+
+
+def _max_abs(rows, ref, key, sl=slice(None)):
+    """Max abs difference of field `key` (its slice `sl`) over rows and ref
+    rows of equal count; None when there are none."""
+    if not rows:
+        return None
+    a, b = (np.asarray([np.atleast_1d(r[key])[sl] for r in rs], dtype=np.float64)
+            for rs in (rows, ref))
+    return float(np.abs(a - b).max())
+
+
+# door_deviation's fields: name -> (DoorLog field, slice)
+DOOR_DEVIATION_FIELDS = {
+    "t": ("t", slice(None)), "panel": ("panel", slice(None)), "lever": ("lever", slice(None)),
+    "base_xyz": ("base_pose", slice(0, 3)), "base_rpy": ("base_pose", slice(3, 6)),
+    "feet_z": ("feet_z", slice(None)), "ee": ("ee_pos", slice(None)),
+    "ee_err": ("ee_err", slice(None)), "wrench": ("wrench_plan", slice(None))}
+
+
+def door_deviation(rows, ref):
+    """Max abs difference by field (DOOR_DEVIATION_FIELDS; solve_t and viol
+    of the solves) of two door_rows lists over the ticks and solves both
+    have, the row counts, and whether the solves' phases agree."""
+    ticks, ref_ticks = ([r for r in rs if r["kind"] == "tick"] for rs in (rows, ref))
+    solves, ref_solves = ([r for r in rs if r["kind"] == "solve"] for rs in (rows, ref))
+    n, m = min(len(ticks), len(ref_ticks)), min(len(solves), len(ref_solves))
+    out = {"ticks": [len(ticks), len(ref_ticks)], "solves": [len(solves), len(ref_solves)]}
+    for name, (key, sl) in DOOR_DEVIATION_FIELDS.items():
+        out[name] = _max_abs(ticks[:n], ref_ticks[:n], key, sl)
+    out["solve_t"] = _max_abs(solves[:m], ref_solves[:m], "t")
+    out["viol"] = _max_abs(solves[:m], ref_solves[:m], "viol")
+    out["phases_equal"] = [r["phase"] for r in solves[:m]] == [r["phase"] for r in ref_solves[:m]]
+    return out
+
+
+def door_check(rows, trace, bars):
+    """(k)'s run (door_rows) against the trace: safe and finite, every tick
+    and solve of the trace present with its t, the solves' phases the
+    trace's (every one a press), the planned wrench exactly 0 on every
+    reach tick (t < t_reach, before the first press solve) and non-zero on
+    every tick after it, each field's deviation within its bar and each
+    solve's violation within VIOLATION_MAX. Returns the deviations; raises
+    on a miss."""
+    dev_ = door_deviation(rows, trace)
+    viol_max = max((r["viol"] for r in rows if r["kind"] == "solve"), default=None)
+    ticks = [r for r in rows if r["kind"] == "tick"]
+    finite = all(np.isfinite(np.asarray(r[k], dtype=np.float64)).all()
+                 for r in ticks for k in DOOR_TICK_FIELDS)
+    reach = [r for r in ticks if r["t"] < DOOR_SCENARIO["t_reach"] - 1e-9]
+    after = [r for r in ticks if r["t"] >= DOOR_SCENARIO["t_reach"] - 1e-9]
+    wrench = {"reach_ticks": len(reach), "press_ticks": len(after),
+              "reach_max_abs": max((max(abs(w) for w in r["wrench_plan"]) for r in reach),
+                                   default=None),
+              "press_min_norm": min((float(np.linalg.norm(r["wrench_plan"])) for r in after),
+                                    default=None)}
+    press = [r["phase"] for r in trace if r["kind"] == "solve"]
+    ok = (rows[-1]["safe"] and finite and dev_["ticks"][0] == dev_["ticks"][1]
+          and dev_["solves"][0] == dev_["solves"][1] and dev_["phases_equal"]
+          and press and set(press) == {"press"} and reach and after
+          and wrench["reach_max_abs"] == 0.0 and wrench["press_min_norm"] > 0.0
+          and all(dev_[k] <= bar for k, bar in bars.items()) and viol_max <= VIOLATION_MAX)
+    line = {"safe": rows[-1]["safe"], "finite": finite, "deviation": dev_, "bars": bars,
+            "viol_max": viol_max, "viol_bar": VIOLATION_MAX, "wrench": wrench,
+            "phases": press}
+    log("[k] door against the trace " + json.dumps(line))
+    if not ok:
+        raise RuntimeError(f"(k) the door against the trace: {json.dumps(line)}")
+    return line
+
+
+def phase_door(dev):
+    """(k) the door on the card: DoorOpeningRunner on door_runner's set-up in
+    f32 for DOOR_SECONDS (every coupled physics step, tick and solve timed
+    between synchronizes; one solve and one tick profiled and their K1
+    calls held to f64), K1 exactly DOOR_SOLVE_K1 a solve and DOOR_TICK_K1 a
+    tick, held to the trace (door_check, DOOR_BARS). Returns K1's row on
+    this path and the run's result."""
+    import torch
+
+    from qm_door_torch.sim import door_loop
+
+    t0 = time.time()
+    trace = [json.loads(line) for line in open(DOOR_TRACE)]
+    runner = door_runner(dev, torch.float32)
+    run_log, result, recorded, by_shape = run_timed(
+        runner, lambda: runner.run(duration=DOOR_SECONDS), (door_loop, "coupled_step"),
+        profile_at=DOOR_PROFILE_AT, record_at=DOOR_RECORD_AT)
+    result["seconds"] = DOOR_SECONDS
+    check_trot_launches(result, by_shape, "(k) door", DOOR_SOLVE_K1, DOOR_TICK_K1)
+    log("[k] door host ms " + json.dumps({k: result[k] for k in (
+        "wall_s", "ticks", "solves", "steps", "host_ms_median", "host_ms_mean",
+        "device_idle_share")}))
+    trace_check = door_check(door_rows(run_log), trace, DOOR_BARS)
+    k1 = {"solve": check_k1_calls(recorded["solve"], "in a (k) solve"),
+          "tick": check_wbc_k1_calls(recorded["tick"], "in a (k) tick")}
+    k1["tick"]["calls_by_shape"] = shape_keys(k1["tick"]["calls_by_shape"])
+    row = period_kernel_row(recorded, by_shape, result, DOOR_SOLVE_K1, DOOR_TICK_K1, "k",
+                            "the door DoorOpeningRunner")
+    result.update(trace=trace_check, k1_calls_against_f64=k1, impl="torch", dtype="float32",
+                  device=torch.cuda.get_device_name(0), phase_s=time.time() - t0)
+    log("[k] door " + json.dumps(result))
     return row, result
 
 
@@ -3062,6 +3296,7 @@ def main():
     wbc_rows = phase("h", phase_wbc, dev)
     loop_row, _, _ = phase("i", phase_closed_loop, dev)
     trot_row, _, _ = phase("j", phase_trot, dev)
+    door_row, _ = phase("k", phase_door, dev)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -3134,6 +3369,9 @@ def main():
     # (j)'s path, one robot: K1 an MPC period (a solve and five ticks), with
     # the launches of (j)'s trot window
     kernels.append(trot_row)
+    # (k)'s path, the door: K1 an MPC period (a 2-iteration solve and five
+    # force-aware ticks), with the launches of (k)'s window
+    kernels.append(door_row)
     log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     log(card)

@@ -116,31 +116,42 @@ def sphere_mesh_force(mesh: WorldMesh, p, v_p, radius, stiffness, damping,
     return torch.sum(F, dim=-2)
 
 
-def world_generalized_forces(model: RobotModel, mesh: WorldMesh, q, v,
-                             stiffness=20000.0, damping=300.0, mu=0.7):
-    """(..., 24) generalized force from wall contacts on the feet and the
-    trunk spheres, all eight in one query."""
-    dtype = q.dtype
-    axes, origins, fk_out = kinematics.joint_world_axes(model, q)
-    _, pf = kinematics.frame_placements(model, q, fk_out)
-    # feet
+@lru_cache(maxsize=None)
+def _sphere_constants(dtype, device):
+    """The trunk spheres' base-frame centers (4, 3) and the eight radii (8,)."""
+    return (torch.tensor(TRUNK_POINTS, dtype=dtype, device=device),
+            torch.tensor([FOOT_RADIUS] * 4 + [TRUNK_RADIUS] * 4, dtype=dtype, device=device))
+
+
+def body_spheres(model: RobotModel, q, axes, origins, pf):
+    """The robot's collision spheres, the 4 feet then the 4 trunk proxy
+    spheres: centers (..., 8, 3), the linear rows of their LWA Jacobians
+    (..., 8, 3, 24) and radii (8,). ``axes``, ``origins`` and ``pf`` are
+    kinematics.joint_world_axes' axes and origins and
+    kinematics.frame_placements' positions at q."""
     J_feet = torch.stack([
         kinematics.point_jacobian(model, q, model.frame_parent[f], pf[..., f, :],
                                   (axes, origins))[..., :3, :]
         for f in model.contact_frame_ids], dim=-3)                 # (..., 4, 3, 24)
     p_feet = torch.stack([pf[..., f, :] for f in model.contact_frame_ids], dim=-2)
-    # trunk proxy spheres (attached to the base body)
+    # trunk proxy spheres, attached to the base body: one Jacobian call for
+    # the four (the base body has no joint columns)
+    r_local, radius = _sphere_constants(q.dtype, q.device)
     R_base = spatial.zyx_to_rot(q[..., 3:6])
-    r_local = torch.tensor(TRUNK_POINTS, dtype=dtype, device=q.device)
     p_trunk = q[..., None, 0:3] + spatial.fmv(R_base[..., None, :, :], r_local)
-    J_trunk = torch.stack([
-        kinematics.point_jacobian(model, q, 0, p_trunk[..., i, :], (axes, origins))[..., :3, :]
-        for i in range(len(TRUNK_POINTS))], dim=-3)                # (..., 4, 3, 24)
+    q4 = q[..., None, :].expand(*q.shape[:-1], len(TRUNK_POINTS), q.shape[-1])
+    J_trunk = kinematics.point_jacobian(model, q4, 0, p_trunk, (None, None))[..., :3, :]
+    return (torch.cat([p_feet, p_trunk], dim=-2), torch.cat([J_feet, J_trunk], dim=-3),
+            radius)
 
-    J = torch.cat([J_feet, J_trunk], dim=-3)                       # (..., 8, 3, 24)
-    p = torch.cat([p_feet, p_trunk], dim=-2)
+
+def world_generalized_forces(model: RobotModel, mesh: WorldMesh, q, v,
+                             stiffness=20000.0, damping=300.0, mu=0.7):
+    """(..., 24) generalized force from wall contacts on the feet and the
+    trunk spheres, all eight in one query."""
+    axes, origins, fk_out = kinematics.joint_world_axes(model, q)
+    _, pf = kinematics.frame_placements(model, q, fk_out)
+    p, J, radius = body_spheres(model, q, axes, origins, pf)
     vel = spatial.fmv(J, v[..., None, :])
-    radius = torch.tensor([FOOT_RADIUS] * 4 + [TRUNK_RADIUS] * 4, dtype=dtype,
-                          device=q.device)[:, None]
-    F = sphere_mesh_force(mesh, p, vel, radius, stiffness, damping, mu)  # (..., 8, 3)
+    F = sphere_mesh_force(mesh, p, vel, radius[:, None], stiffness, damping, mu)  # (..., 8, 3)
     return torch.einsum("...cij,...ci->...j", J, F)

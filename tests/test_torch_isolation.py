@@ -1,5 +1,6 @@
-"""The torch port stands alone: qm_door_torch and chip_smoke.py import
-neither JAX, flax nor the JAX package (qm_door_tpu), and the port reads its
+"""The torch port stands alone: qm_door_torch, chip_smoke.py and the port's
+other root scripts (PORT_SCRIPTS) import neither JAX, flax nor the JAX
+package (qm_door_tpu), and the port reads its
 own copies of the assets (the robot and the collision worlds). And no kernel wrapper
 gives way: nothing in ``qm_door_torch/ops`` catches an exception, so a
 launch error can only raise."""
@@ -13,6 +14,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "qm_door_tpu")
+# the port's scripts at the repository's root, each run on the card
+PORT_SCRIPTS = ("chip_smoke.py", "trot_2s.py", "side_paths.py", "k1_launch_shapes.py",
+                "lq_launch_shapes.py", "sweep_launch_shapes.py", "door_run.py")
 
 
 def _port_modules():
@@ -52,13 +56,15 @@ def test_importing_every_port_module_loads_no_jax():
                  "qm_door_torch.sim.batched_rollout", "qm_door_torch.runtime.mrt",
                  "qm_door_torch.runtime.safety", "qm_door_torch.runtime.controller",
                  "qm_door_torch.estimation.base", "qm_door_torch.estimation.kalman",
-                 "qm_door_torch.sim.closed_loop"):
+                 "qm_door_torch.sim.closed_loop", "qm_door_torch.sim.door",
+                 "qm_door_torch.sim.door_loop", "qm_door_torch.scenarios",
+                 "qm_door_torch.runtime.gait_command", "qm_door_torch.runtime.planner"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, name) for name in PORT_SCRIPTS]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "qm_door_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -321,3 +321,79 @@ def test_safety_check_matches_jax():
     np.testing.assert_array_equal(out, ref)
     assert out.dtype == bool and 0 < out.sum() < out.size
     np.testing.assert_array_equal(out[:angles.size], np.abs(angles) < half)
+
+
+# measured_rbd's blocks, by name: (the rbd slice, what it holds)
+RBD_BLOCKS = {"omega": slice(24, 27), "p_ee": slice(48, 51), "quat": slice(51, 55)}
+
+
+def test_measured_rbd_in_float32_is_as_accurate_as_jax():
+    """The rbd state the closed loop reads each step (measured_rbd) in f32,
+    the port's and the JAX package's, against the port's f64 on the same
+    f32 states (100 seeded poses and velocities about the trot's): the
+    copied blocks exact in both, and the computed ones (world angular
+    velocity, EE position and quaternion) no further from f64 than twice
+    JAX's own f32 error. (JAX's f32 canonical trot with this function taken
+    from the port, tests/torch_parity.py trot-swap rbd 2.0 1e-5, leaves two
+    golden bands where its own does not: with this error that is the f32
+    trot's rounding split, not a fault of the port's rbd.)"""
+    jm32 = j_aliengo_z1(dtype=jnp.float32)
+    tm32, tm64 = t_aliengo_z1(dtype=torch.float32, device="cpu"), t_aliengo_z1(dtype=F64,
+                                                                               device="cpu")
+    rng = np.random.default_rng(11)
+    x0 = default_config().initial_state()
+    q = (x0[6:30] + rng.normal(size=(100, 24)) * 0.05).astype(np.float32)
+    q[:, 0:2] += rng.normal(size=(100, 2)).astype(np.float32) * 0.3
+    v = (rng.normal(size=(100, 24)) * 0.5).astype(np.float32)
+    ref = to_np(t_sim.measured_rbd(tm64, t_sim.SimState(torch.tensor(q, dtype=F64),
+                                                         torch.tensor(v, dtype=F64), *[None] * 4)))
+    port = to_np(t_sim.measured_rbd(tm32, t_sim.SimState(torch.tensor(q), torch.tensor(v),
+                                                          *[None] * 4))).astype(np.float64)
+    jax_rbd = np.stack([np.asarray(j_sim.measured_rbd(jm32, j_sim.SimState(
+        q=jnp.asarray(q[i]), v=jnp.asarray(v[i]), t=None, cmd_buffer=None, buf_head=None,
+        anchor=None))) for i in range(100)])
+    assert jax_rbd.dtype == np.float32
+    jax_rbd = jax_rbd.astype(np.float64)
+    computed = np.zeros(55, dtype=bool)
+    for sl in RBD_BLOCKS.values():
+        computed[sl] = True
+    np.testing.assert_array_equal(port[:, ~computed], ref[:, ~computed])
+    np.testing.assert_array_equal(jax_rbd[:, ~computed], ref[:, ~computed])
+    for name, sl in RBD_BLOCKS.items():
+        port_err = np.abs(port[:, sl] - ref[:, sl]).max()
+        jax_err = np.abs(jax_rbd[:, sl] - ref[:, sl]).max()
+        assert 0.0 < jax_err < 1e-6 and port_err <= 2.0 * jax_err, (name, port_err, jax_err)
+
+
+FD_STATES = 6  # JAX's f32 forward dynamics runs eagerly, ~1-2 s a state
+
+
+def test_forward_dynamics_in_float32_is_as_accurate_as_jax():
+    """The physics step's forward dynamics in f32 (zero applied force), the
+    port's and the JAX package's, against the port's f64 on the same f32
+    states (FD_STATES seeded poses and velocities about the trot's): the port no
+    further from f64 than twice JAX's own f32 error. (JAX's f32 canonical
+    trot with the port's physics step and JAX's contact forces,
+    tests/torch_parity.py trot-swap sim_dynamics 2.0 1e-5, leaves two
+    golden bands, while with the port's whole step, forward dynamics and
+    contacts, it stays inside them: the rounding split, not a fault.)"""
+    from qm_door_torch.models import dynamics as t_dyn
+    from qm_door_tpu.models import dynamics as j_dyn
+
+    jm32 = j_aliengo_z1(dtype=jnp.float32)
+    tm32, tm64 = t_aliengo_z1(dtype=torch.float32, device="cpu"), t_aliengo_z1(dtype=F64,
+                                                                               device="cpu")
+    rng = np.random.default_rng(12)
+    x0 = default_config().initial_state()
+    q = (x0[6:30] + rng.normal(size=(FD_STATES, 24)) * 0.05).astype(np.float32)
+    v = (rng.normal(size=(FD_STATES, 24)) * 0.5).astype(np.float32)
+    ref = to_np(t_dyn.forward_dynamics(tm64, torch.tensor(q, dtype=F64), torch.tensor(v, dtype=F64),
+                                       torch.zeros(FD_STATES, 24, dtype=F64)))
+    port = to_np(t_dyn.forward_dynamics(tm32, torch.tensor(q), torch.tensor(v),
+                                        torch.zeros(FD_STATES, 24))).astype(np.float64)
+    jax_a = np.stack([np.asarray(j_dyn.forward_dynamics(jm32, jnp.asarray(q[i]), jnp.asarray(
+        v[i]), jnp.zeros(24, jnp.float32))) for i in range(FD_STATES)])
+    assert jax_a.dtype == np.float32
+    port_err = np.abs(port - ref).max()
+    jax_err = np.abs(jax_a.astype(np.float64) - ref).max()
+    assert 0.0 < jax_err < 1e-2 and port_err <= 2.0 * jax_err, (port_err, jax_err)

@@ -654,6 +654,88 @@ def jax_side_deviation(duration=0.02):
     return out
 
 
+def _jax_door_runner(dtype_name):
+    """chip_smoke.py (k)'s set-up in the JAX package on the CPU, in
+    ``dtype_name`` ("float32": x64 off, as the JAX package runs on its
+    chip; "float64"): DoorOpeningRunner on the push door, default_config()
+    with the gates at -1 (as scenarios.make_scenario sets them), N = 67,
+    DoorScenario(**chip_smoke.DOOR_SCENARIO)."""
+    import sys
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", dtype_name == "float64")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    import jax.numpy as jnp
+    from qm_door_tpu.config import default_config
+    from qm_door_tpu.models import aliengo_z1
+    from qm_door_tpu.sim.door_loop import DoorOpeningRunner, DoorScenario
+
+    cfg = default_config()
+    cfg.controller.leg_pd_start_time = -1.0
+    cfg.wbc.arm_init_time = -1.0
+    return DoorOpeningRunner(aliengo_z1(dtype=getattr(jnp, dtype_name)), cfg,
+                             scenario=DoorScenario(**chip_smoke.DOOR_SCENARIO))
+
+
+def jax_door_rows(dtype_name, duration):
+    """The JAX package's run of chip_smoke.py (k)'s set-up (_jax_door_runner)
+    for ``duration`` s, as chip_smoke.door_rows. Run in a process of its
+    own."""
+    runner = _jax_door_runner(dtype_name)
+    import chip_smoke
+
+    return chip_smoke.door_rows(runner.run(duration=duration))
+
+
+def _door_rows_in_process(dtype_name, duration):
+    import subprocess
+    import sys
+
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "door-log", dtype_name,
+                          str(duration)], capture_output=True, text=True, check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def write_door_trace(duration):
+    """docs/artifacts/door_press_trace.jsonl: the JAX package's f64 run of
+    chip_smoke.py (k)'s set-up for ``duration`` s, one JSON row a tick, then
+    one a solve after t = 0, then the safe flag (chip_smoke.door_rows)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    rows = _door_rows_in_process("float64", duration)
+    with open(chip_smoke.DOOR_TRACE, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    return {"rows": len(rows), "path": os.path.relpath(chip_smoke.DOOR_TRACE)}
+
+
+def jax_door_deviation(duration):
+    """How far the JAX package's own f32 run of chip_smoke.py (k)'s set-up
+    strays from its f64 run over ``duration`` s (each run in a process of
+    its own), by field (chip_smoke.door_deviation), and how far the f64 run
+    is from docs/artifacts/door_press_trace.jsonl. The card's f32 run is
+    held to a band of chip_smoke.TROT_BANDS where JAX's f32 run stays inside
+    it, and to twice JAX's f32 deviation (rounded up) elsewhere
+    (chip_smoke.DOOR_BARS)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    rows = {name: _door_rows_in_process(name, duration) for name in ("float32", "float64")}
+    trace = [json.loads(line) for line in open(chip_smoke.DOOR_TRACE)]
+    return {"float32_vs_float64": chip_smoke.door_deviation(rows["float32"], rows["float64"]),
+            "float64_vs_trace": chip_smoke.door_deviation(rows["float64"], trace),
+            "safe": [rows[k][-1]["safe"] for k in ("float32", "float64")]}
+
+
 if __name__ == "__main__":
     import sys
 
@@ -679,7 +761,14 @@ if __name__ == "__main__":
         offset = float(sys.argv[4]) if len(sys.argv) > 4 else 0.0
         print(json.dumps(golden_report(jax_trot_swapped(sys.argv[2], duration, offset),
                                        duration)))
+    elif sys.argv[1:2] == ["door-log"]:
+        print(json.dumps(jax_door_rows(sys.argv[2], float(sys.argv[3]))))
+    elif sys.argv[1:2] == ["door-trace"]:
+        print(json.dumps(write_door_trace(float(sys.argv[2]) if len(sys.argv) > 2 else 0.04)))
+    elif sys.argv[1:2] == ["door-bars"]:
+        print(json.dumps(jax_door_deviation(float(sys.argv[2]) if len(sys.argv) > 2 else 0.04)))
     else:
         sys.exit("usage: python tests/torch_parity.py loop-bars | trot-bars [duration_s] | "
                  "side-bars [duration_s] | port-trot float32|float64 [duration_s] | "
-                 "trot-swap " + "|".join(TROT_SWAPS) + " [duration_s [height_offset_m]]")
+                 "trot-swap " + "|".join(TROT_SWAPS) + " [duration_s [height_offset_m]] | "
+                 "door-trace [duration_s] | door-bars [duration_s]")
