@@ -183,15 +183,41 @@ Phases:
       press solve, every violation within VIOLATION_MAX; K1 at the door's
       five shapes timed beside its bound, its plain version and
       torch.linalg.
+  (l) real time, realtime_run.py's path (the README's real-time entry
+      point): the MPC thread (runtime/async_runner.py:AsyncMpcLoop,
+      SqpSolver.solve at 100 Hz on a CUDA stream of its own, policies
+      through the native seqlock mailbox) beside the 500 Hz control loop
+      (the controller tick and 2 physics substeps a tick, paced by the
+      native PeriodicTimer), AlienGo+Z1, N = 67, f32, the trot, for
+      RT_SECONDS (8 ticks) after a warm-up that times CHAINED_SOLVES
+      solves and CHAINED_TICKS ticks alone; held: the MPC thread raised nothing, every tick safe,
+      the base within LOOP_HEIGHT_BAND of its spawn height and roll / pitch
+      within pi/2, the mailbox's sequence never fell, every policy a tick
+      read is bit for bit one the MPC thread published, the MPC thread ran
+      off the default stream, K1 exactly 68 a solve completed and 101 a
+      tick by variant and shape; printed: a solve's host ms (p50 / p95)
+      beside the thread against 10 ms and alone, a tick's against 2 ms
+      beside the MPC thread and alone,
+      the timer's overruns; one more solve and tick with their K1 calls
+      held to f64, K1 at the path's shapes timed beside its bound. Then two
+      single solves (4 SQP iterations each): riccati="parallel" (the
+      associative scan) timed in turns against the sequential sweep, K1 by
+      shape (67 x 12 x 18, 67 x 30 x 61, 67 x 30 x 31 an iteration) with
+      every call held to f64, its solution within (c)'s bars of the scan's
+      and of the CPU's f64 solve; the self-collision cost at mu = 0.1:
+      finite, violation within VIOLATION_MAX, within (c)'s bars of the CPU's
+      f64 solve, the pairs' clearances printed.
 
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
 second time, on (g)'s force-tracking path; K1 at (h)'s six shapes; K1 on
-(i)'s path, a cycle's work; K1 on (j)'s and (k)'s paths, a solve and five
-ticks each); the last line is {"ok": true, "device": {...}}.
+(i)'s path, a cycle's work; K1 on (j)'s, (k)'s and (l)'s paths, a solve
+and five ticks each; K1 on the associative scan's solve); the last line is
+{"ok": true, "device": {...}}.
 """
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -771,14 +797,17 @@ STAGE_T0S = (0.0, 0.1, 0.2, 0.3)
 
 
 def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1", sensitivity="frozen",
-                 force_tracking=False, quad_only=False, shared_stage=True, t0=0.0):
+                 force_tracking=False, quad_only=False, shared_stage=True, t0=0.0,
+                 riccati="scan", self_collision_mu=0.0, sqp_iterations=None):
     """The bench problem: AlienGo+Z1, 1 s / 67-node trot horizon, targets at
     the nominal pose, seed-0 initial-state perturbations; BatchedMpc on the
     given LQ backend. Options: the force-tracking problem (nu = 36, the
     stage widened with the grasp from FT_GRASP_FROM s and the wrench
     reference FT_WRENCH_REF), the quad-only config (arm_locked), per-scenario
     stage data (the trot from the STAGE_T0S in turn); the horizon from t0 s
-    on. Returns (mpc, stage,
+    on; the per-scenario solver's Riccati (`riccati`), the self-collision
+    cost's weight and the SQP iterations a solve (the config's unless
+    given). Returns (mpc, stage,
     x_batch, X, U): the cold start, U from weight_compensating_input_ft
     (zero wrench) on the force-tracking problem."""
     import torch
@@ -797,6 +826,10 @@ def make_problem(dev, dtype, batch, lin_tangents, backend="bm_k1", sensitivity="
     cfg.sqp.linesearch_steps = 2
     cfg.sqp.lin_tangents = lin_tangents
     cfg.sqp.sensitivity = sensitivity
+    cfg.sqp.riccati = riccati
+    cfg.self_collision.mu = self_collision_mu
+    if sqp_iterations is not None:
+        cfg.sqp.sqp_iterations = sqp_iterations
     model = aliengo_z1(dtype=dtype, device=dev)
     ocp = (force.make_ocp_config_ft if force_tracking else make_ocp_config)(model, cfg)
     solver = SqpSolver(model, ocp, cfg)
@@ -3240,6 +3273,219 @@ def phase_door(dev):
     return row, result
 
 
+# (l) real time: realtime_run.py's main path, the MPC thread (SqpSolver.solve
+# on a stream of its own) beside the 500 Hz control loop, over a short window
+RT_SECONDS = 0.016  # 8 control ticks, short so that the whole script fits its limit
+# the attitude bar of every tick: runtime/safety.py's (roll and pitch within
+# pi/2), which (i)'s alive count applies; the height bar is (i)'s
+RT_ATTITUDE_BAR = math.pi / 2
+
+
+def phase_realtime(dev):
+    """(l) realtime_run.RealtimeRun on the card for RT_SECONDS (f32, N = 67,
+    the trot; its warm-up first: the cold and a warm solve, a tick, then
+    CHAINED_SOLVES solves and CHAINED_TICKS ticks alone), the launch counters set to 0 just before
+    the window and read just after: held: the MPC thread raised nothing,
+    every tick safe, the base within LOOP_HEIGHT_BAND of its spawn height
+    and roll / pitch within RT_ATTITUDE_BAR, the mailbox's sequence never
+    fell and every policy a tick read is, bit for bit, one the MPC thread
+    published, the MPC thread's solves ran on a stream other than the
+    default one, and K1 launched exactly SOLVE_K1 a solve completed and
+    TICK_K1 a tick (by variant and shape), no other kernel. Then one more
+    solve and one tick, their K1 calls held to f64. Returns K1's row on this
+    path and the result."""
+    import torch
+
+    import realtime_run
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.solver import projection, riccati
+    from qm_door_torch.wbc import hoqp, qp
+
+    t0 = time.time()
+    run = realtime_run.RealtimeRun(duration=RT_SECONDS, device=dev)
+    run.prepare()
+    reset_launches()
+    result = run.run()  # raises the MPC thread's exception, if it had one
+    launches = read_launches()
+    by_variant = dict(spd_solve.launches_by_variant)
+    by_shape = dict(spd_solve.launches_by_shape)
+    solves, ticks = result["solves_completed"], result["ctrl"]["ticks"]
+    want_variant, want_shape = trot_k1_expect(solves, ticks, SOLVE_K1, TICK_K1["combined"])
+    want = {kid: sum(want_shape.values()) if kid == "K1" else 0 for kid in launches}
+    result.update(launches=launches, k1_by_variant=by_variant, k1_by_shape=shape_keys(by_shape))
+    log("[l] real time " + json.dumps(result))
+    checks = {
+        "safe": result["safe"], "ticks": ticks == int(round(RT_SECONDS * run.ctrl_hz)),
+        "height": result["base_height_max_dev_m"] <= LOOP_HEIGHT_BAND,
+        "attitude": result["base_roll_pitch_max_rad"] < RT_ATTITUDE_BAR,
+        "seq_never_fell": result["mailbox"]["seq_never_fell"],
+        "every_read_published": result["mailbox"]["every_read_published"],
+        "mpc_off_the_default_stream": not result["mpc_on_default_stream"],
+        "solves": solves >= 1 and result["mpc"]["solves"] == solves,
+        "k1_exact": (launches, by_variant, by_shape) == (want, want_variant, want_shape)}
+    log(f"[l] checks {json.dumps(checks)}; K1 {launches['K1']} = {SOLVE_K1} x {solves} solves "
+        f"+ {TICK_K1['combined']} x {ticks} ticks")
+    if not all(checks.values()):
+        raise RuntimeError(f"(l) real time: {json.dumps(checks)}; launches {launches}, K1 by "
+                           f"variant {by_variant}, by shape {by_shape}; expected {want}, "
+                           f"{want_variant}, {want_shape}")
+    recorded = {}
+    with k1_calls(riccati, projection) as calls:
+        run.solve_fn()
+        torch.cuda.synchronize()
+    recorded["solve"] = list(calls)
+    with k1_calls(qp, hoqp) as calls:
+        run._tick(run._policy_on_device(run.mailbox.latest()[1]), ticks / run.ctrl_hz,
+                  run.rbd0, run.wbc_state, 0.0, run.sim)
+        torch.cuda.synchronize()
+    recorded["tick"] = list(calls)
+    k1 = {"solve": check_k1_calls(recorded["solve"], "in an (l) solve"),
+          "tick": check_wbc_k1_calls(recorded["tick"], "in an (l) tick")}
+    k1["tick"]["calls_by_shape"] = shape_keys(k1["tick"]["calls_by_shape"])
+    row = period_kernel_row(recorded, by_shape, result, SOLVE_K1, TICK_K1["combined"], "l",
+                            "real time AsyncMpcLoop beside the control loop")
+    summary = {
+        "solve_host_ms_p50": result["mpc"]["ms_p50"],
+        "solve_host_ms_p95": result["mpc"]["ms_p95"], "solve_budget_ms": result["budget_ms"],
+        "solve_alone_host_ms": result["solve_alone_host_ms"],
+        "tick_host_ms_mean": result["ctrl"]["ms_mean"], "tick_host_ms_p95": result["ctrl"]["ms_p95"],
+        "tick_alone_host_ms": result["tick_alone_host_ms"],
+        "tick_budget_ms": result["ctrl"]["budget_ms"], "overruns": result["overruns"],
+        "solves_completed": solves, "ticks": ticks, "wall_s": result["wall_s"]}
+    result.update(summary=summary, k1_calls_against_f64=k1, checks=checks,
+                  phase_s=time.time() - t0)
+    log("[l] real time summary " + json.dumps(summary))
+    return row, result
+
+
+# The two solver options the real-time path's solver gained, each one
+# SqpSolver.solve of OPTION_SOLVE_ITERS iterations from make_problem's cold
+# start (B = 1, lin_tangents "analytic"): the cold start's violation falls
+# under VIOLATION_MAX by the 4th iteration (3.35e-6 on the CPU in f32 and
+# f64 with the self-collision cost on)
+OPTION_SOLVE_ITERS = 4
+COLLISION_MU = 0.1
+OPTION_SOLVES = {"parallel": {"riccati": "parallel"},
+                 "self_collision": {"self_collision_mu": COLLISION_MU}}
+# K1's calls an iteration of riccati="parallel": the projection's node
+# solves, completing the square at every stage (the right-hand sides
+# [lux, lu, B'] stacked, 30 + 1 + 30) and every gain (30 + 1)
+PAR_SOLVE_K1 = {(67, 12, 18): 1, (67, 30, 61): 1, (67, 30, 31): 1}
+
+
+def option_problem(device, dtype, **option):
+    """make_problem's scenario 0 with `option`, OPTION_SOLVE_ITERS SQP
+    iterations a solve: (solver, its solve of scenario 0 as a call)."""
+    mpc, stage, x_batch, _, _ = make_problem(device, dtype, 1, "analytic",
+                                             sqp_iterations=OPTION_SOLVE_ITERS, **option)
+    return mpc.solver, lambda: mpc.solver.solve(stage, x_batch[0])
+
+
+def option_reference(option):
+    """option_solve on the CPU in f64: (X, U, cost, violation), numpy. Runs
+    in a worker process of phase_option_solves's, two torch threads."""
+    import torch
+
+    torch.set_num_threads(2)
+    sol = option_problem(torch.device("cpu"), torch.float64, **option)[1]()
+    return sol.X.numpy(), sol.U.numpy(), float(sol.cost), float(sol.constraint_violation)
+
+
+def phase_option_solves(dev):
+    """(l)'s two single solves on the card in f32: riccati="parallel" (the
+    associative scan) timed in turns against the sequential sweep (parallel,
+    scan, scan, parallel; host ms between synchronizes), K1 counted by shape
+    (PAR_SOLVE_K1 an iteration) and every K1 call held to f64, its solution
+    held to the scan's and to the CPU's f64 solve of the same option within
+    (c)'s bars; the self-collision cost at mu = COLLISION_MU: finite, the
+    violation within VIOLATION_MAX, the CPU f64 solve within (c)'s bars, the
+    pairs' clearances printed. The CPU f64 solves run in two spawned
+    processes once the turns are timed. Returns K1's row on the scan's path
+    and the results."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from qm_door_torch.ocp import collision
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.solver import parallel_riccati, projection
+
+    t0 = time.time()
+    out, sols, host_ms = {}, {}, {}
+    solves = {name: option_problem(dev, torch.float32, riccati=name)[1]
+              for name in ("parallel", "scan")}
+    for i, name in enumerate(("parallel", "scan", "scan", "parallel")):
+        torch.cuda.synchronize()
+        reset_launches()
+        with k1_calls(parallel_riccati, projection) as calls:
+            t = time.time()
+            sols[name] = solves[name]()
+            torch.cuda.synchronize()
+        host_ms[f"{name}_{i}"] = 1e3 * (time.time() - t)
+        if name == "parallel":
+            launches, by_shape = read_launches(), dict(spd_solve.launches_by_shape)
+            par_calls = list(calls)
+    want_shape = {k: v * OPTION_SOLVE_ITERS for k, v in PAR_SOLVE_K1.items()}
+    want = {kid: sum(want_shape.values()) if kid == "K1" else 0 for kid in launches}
+    if (launches, by_shape) != (want, want_shape):
+        raise RuntimeError(f"riccati=parallel solve: launches {launches}, K1 by shape "
+                           f"{by_shape}; expected {want}, {want_shape}")
+    rel, calls_by_shape = check_k1_calls(par_calls, "in a riccati=parallel solve")
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {name: pool.submit(option_reference, kw) for name, kw in OPTION_SOLVES.items()}
+        solver, solve = option_problem(dev, torch.float32, self_collision_mu=COLLISION_MU)
+        reset_launches()
+        sols["self_collision"] = solve()
+        torch.cuda.synchronize()
+        col_launches = read_launches()
+        clear = collision.pair_clearances(solver.model, sols["self_collision"].X[:, 6:30],
+                                          solver.ocp.self_collision_margin)
+        refs = {name: f.result() for name, f in refs.items()}
+
+    def dev_of(sol, X, U):
+        return ((sol.X.double().cpu() - torch.as_tensor(X)).abs().max().item(),
+                (sol.U.double().cpu() - torch.as_tensor(U)).abs().max().item())
+
+    for name in OPTION_SOLVES:
+        sol = sols[name]
+        X, U, cost, viol = refs[name]
+        dX, dU = dev_of(sol, X, U)
+        out[name] = {"cost": float(sol.cost), "violation": float(sol.constraint_violation),
+                     "step_size": float(sol.step_size), "cpu_f64": {"cost": cost,
+                                                                    "violation": viol},
+                     "X_err_max": dX, "U_err_max": dU,
+                     "finite": bool(torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all())}
+    dX, dU = dev_of(sols["parallel"], sols["scan"].X.double().cpu(),
+                    sols["scan"].U.double().cpu())
+    means = {name: float(np.mean([v for k, v in host_ms.items() if k.startswith(name)]))
+             for name in ("parallel", "scan")}
+    out["parallel"].update(against_scan={"X_err_max": dX, "U_err_max": dU},
+                           host_ms_turns=host_ms, host_ms_mean=means, launches=launches,
+                           k1_by_shape=shape_keys(by_shape), k1_rel_err_max=rel,
+                           k1_calls_by_shape=calls_by_shape,
+                           iterations=OPTION_SOLVE_ITERS)
+    h = clear.double().cpu()
+    out["self_collision"].update(
+        mu=COLLISION_MU, launches=col_launches, iterations=OPTION_SOLVE_ITERS,
+        clearance_min_m=h.min().item(), clearance_min_by_pair_m=h.min(dim=0).values.tolist(),
+        clearance_min_node=int(h.min(dim=1).values.argmin()))
+    log("[l] option solves " + json.dumps(out))
+    bad = [name for name in OPTION_SOLVES if not (
+        out[name]["finite"] and out[name]["violation"] <= VIOLATION_MAX
+        and out[name]["X_err_max"] <= CROSS_DX_MAX and out[name]["U_err_max"] <= CROSS_DU_MAX)]
+    if not (dX <= CROSS_DX_MAX and dU <= CROSS_DU_MAX) or col_launches["K1"] != \
+            68 * OPTION_SOLVE_ITERS:
+        bad.append("parallel against scan / self-collision launches")
+    if bad:
+        raise RuntimeError(f"(l) option solves failed: {bad}: {json.dumps(out)}")
+    row = period_kernel_row({"solve": par_calls, "tick": []}, by_shape,
+                            {"launches": launches}, want_shape, {}, "l",
+                            "riccati=parallel SqpSolver.solve")
+    out["phase_s"] = time.time() - t0
+    return row, out
+
+
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "K1-ll": ("spd_solve_ll", "qm_door_torch/csrc/spd_solve.cu",
               "qm_door_tpu/ops/pallas_chol.py:133"),
@@ -3297,6 +3543,8 @@ def main():
     loop_row, _, _ = phase("i", phase_closed_loop, dev)
     trot_row, _, _ = phase("j", phase_trot, dev)
     door_row, _ = phase("k", phase_door, dev)
+    realtime_row, _ = phase("l", phase_realtime, dev)
+    scan_row, _ = phase("l_options", phase_option_solves, dev)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -3372,6 +3620,11 @@ def main():
     # (k)'s path, the door: K1 an MPC period (a 2-iteration solve and five
     # force-aware ticks), with the launches of (k)'s window
     kernels.append(door_row)
+    # (l)'s path, real time: K1 an MPC period (a solve on the MPC thread and
+    # five ticks), with the launches of (l)'s window; and K1 on the
+    # associative scan's solve (riccati="parallel"), one solve's launches
+    kernels.append(realtime_row)
+    kernels.append(scan_row)
     log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     log(card)

@@ -49,10 +49,7 @@ def robot_model_from_numpy(d, device=None, dtype=torch.float64) -> RobotModel:
 
 def ocp_config_from_numpy(d, device=None, dtype=torch.float64) -> OcpConfig:
     """OcpConfig from the JAX OcpConfig's fields (the 30- or 36-input
-    problem, ``arm_locked`` or not). The self-collision cost is not ported
-    and must be off."""
-    if d.get("self_collision_mu", 0.0) > 0.0:
-        raise NotImplementedError("the self-collision cost is not ported yet")
+    problem, ``arm_locked`` or not, ``self_collision_{mu,delta,margin}``)."""
     return OcpConfig(**_tensor_fields(OcpConfig, d, dtype, device))
 
 

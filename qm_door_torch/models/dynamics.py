@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import spatial
+from . import autodiff, spatial
 from .kinematics import fk, joint_world_axes, point_jacobian
 from .model import GRAVITY, RobotModel
 
@@ -39,8 +39,9 @@ def body_com_kinematics(model: RobotModel, q):
 
 def _grad(fn, q):
     """d fn / d q for each sample of a batch of per-sample scalars fn(q) (...)."""
-    out, vjp = torch.func.vjp(fn, q)
-    return vjp(torch.ones_like(out))[0]
+    with autodiff.LOCK:
+        out, vjp = torch.func.vjp(fn, q)
+        return vjp(torch.ones_like(out))[0]
 
 
 def mass_matrix(model: RobotModel, q):
@@ -69,7 +70,7 @@ def kinetic_energy(model: RobotModel, q, v):
 
 def nonlinear_effects(model: RobotModel, q, v):
     """h(q,v) = C(q,v)v + g(q)  (pinocchio nonLinearEffects equivalent)."""
-    _, Mdot = torch.func.jvp(lambda qq: mass_matrix(model, qq), (q,), (v,))
+    _, Mdot = autodiff.jvp(lambda qq: mass_matrix(model, qq), (q,), (v,))
     kinetic_grad = _grad(lambda qq: kinetic_energy(model, qq, v), q)
     return spatial.fmv(Mdot, v) - kinetic_grad + gravity_vector(model, q)
 
@@ -195,7 +196,7 @@ def cmm_from_fk(model: RobotModel, q, axes, origins, R, p):
 
 def centroidal_momentum_matrix_dot(model: RobotModel, q, v):
     """dA/dt along qdot = v (pinocchio dccrba equivalent)."""
-    _, Adot = torch.func.jvp(lambda qq: centroidal_momentum_matrix(model, qq), (q,), (v,))
+    _, Adot = autodiff.jvp(lambda qq: centroidal_momentum_matrix(model, qq), (q,), (v,))
     return Adot
 
 

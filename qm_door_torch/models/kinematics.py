@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import spatial
+from . import autodiff, spatial
 from .model import RobotModel
 
 
@@ -126,7 +126,7 @@ def frame_jacobians(model: RobotModel, q, frame_ids=None):
 def frame_jacobians_dot(model: RobotModel, q, v, frame_ids=None):
     """dJ/dt for the requested frames: the jvp of :func:`frame_jacobians`
     along qdot = v (in this chart qdot == v)."""
-    _, Jdot = torch.func.jvp(lambda qq: frame_jacobians(model, qq, frame_ids), (q,), (v,))
+    _, Jdot = autodiff.jvp(lambda qq: frame_jacobians(model, qq, frame_ids), (q,), (v,))
     return Jdot
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from . import autodiff
+
 
 def fmm(A, B):
     """Small-matrix product. The single place where the model's and the
@@ -162,7 +164,7 @@ def world_angacc_from_zyx(zyx, zyx_rates, zyx_rates_dot):
     """omega_dot_world = E zyxddot + Edot zyxdot, with Edot the jvp of E
     along the Euler rates (ocs2
     getGlobalAngularAccelerationFromEulerAnglesZyxDerivatives equivalent)."""
-    E, Edot = torch.func.jvp(zyx_rates_to_world_angvel_matrix, (zyx,), (zyx_rates,))
+    E, Edot = autodiff.jvp(zyx_rates_to_world_angvel_matrix, (zyx,), (zyx_rates,))
     return fmv(E, zyx_rates_dot) + fmv(Edot, zyx_rates)
 
 

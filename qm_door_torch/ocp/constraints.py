@@ -12,9 +12,9 @@ swing feet only the z row with b = swing z-velocity reference.
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd
 
 from ..models import centroidal, kinematics, spatial
+from ..models.autodiff import jacfwd
 from ..models.model import RobotModel
 
 

@@ -1,5 +1,5 @@
 """OCP definition: per-node stage data, cost evaluation and quadratization
-(port of qm_door_tpu/ocp/problem.py; the self-collision cost is not ported).
+(port of qm_door_tpu/ocp/problem.py).
 
 The quadratization is closed-form: constant Q/R, Gauss-Newton for the EE
 penalty (OCS2's Linear-order soft constraints), analytic barrier second
@@ -19,11 +19,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as tnf
-from torch.func import jacfwd
 
 from ..models import centroidal, kinematics, spatial
+from ..models.autodiff import jacfwd
 from ..models.model import RobotModel
-from . import penalties
+from . import collision, penalties
 from .gait import GaitSchedule
 from .reference import TargetTrajectories
 from .swing import SwingConfig, compile_swing_references
@@ -59,13 +59,15 @@ class OcpConfig:
     # quad-only variant: arm velocity inputs pinned to zero in the
     # projection (a mask on the 30/30 problem, not a shape change)
     arm_locked: bool = False
+    # self-collision soft constraint (ocp/collision.py); off at mu = 0
+    self_collision_mu: float = 0.0
+    self_collision_delta: float = 0.02
+    self_collision_margin: float = 0.05
 
 
 def make_ocp_config(model: RobotModel, cfg, dtype=None) -> OcpConfig:
     """OcpConfig from a QmConfig on the model's device, including the R
     leg-velocity mapping (QMInterface::initializeInputCostWeight)."""
-    if cfg.self_collision.mu > 0.0:
-        raise NotImplementedError("the self-collision cost is not ported yet")
     dtype = model.dtype if dtype is None else dtype
     dev = model.device
     c = cfg.cost
@@ -105,6 +107,9 @@ def make_ocp_config(model: RobotModel, cfg, dtype=None) -> OcpConfig:
         arm_vel_lower=t(jl.arm_velocity_lower),
         arm_vel_upper=t(jl.arm_velocity_upper),
         arm_locked=cfg.model.arm_locked,
+        self_collision_mu=cfg.self_collision.mu,
+        self_collision_delta=cfg.self_collision.delta,
+        self_collision_margin=cfg.self_collision.margin,
     )
 
 
@@ -263,7 +268,10 @@ def stage_cost(model: RobotModel, ocp: OcpConfig, row: StageRow, x, u):
     c = _tracking_cost(ocp, x - row.x_nom, u - row.u_nom)
     c = c + ee_stage_cost(model, ocp, x, row.ee_pos_ref, row.ee_quat_ref)
     c = c + _cone_cost(ocp, u, row.contact_flags)
-    return c + _soft_limits_cost(ocp, x, u)
+    c = c + _soft_limits_cost(ocp, x, u)
+    if ocp.self_collision_mu > 0.0:
+        c = c + collision.self_collision_cost(model, ocp, x)
+    return c
 
 
 def terminal_cost(model: RobotModel, ocp: OcpConfig, stage: StageData, x):
@@ -372,6 +380,12 @@ def quadratize_stage(model: RobotModel, ocp: OcpConfig, row: StageRow, x, u,
         args = (ocp.wrench_lower, ocp.wrench_upper, ocp.wrench_mu, ocp.wrench_delta)
         lu = lu + tnf.pad(penalties.box_barrier_d(w_, *args), (30, 0))
         luu = luu + torch.diag_embed(tnf.pad(penalties.box_barrier_dd(w_, *args), (30, 0)))
+
+    if ocp.self_collision_mu > 0.0:
+        lc, lcx, lcxx = collision.quadratize_self_collision(model, ocp, x)
+        l = l + lc
+        lx = lx + lcx
+        lxx = lxx + lcxx
     return l, lx, lu, lxx, luu, lux
 
 

@@ -10,9 +10,10 @@ beside it (``.ptxas.txt``). The hash covers the source, every header of
 library is reused only while none of them has changed.
 
 A wrapper asks :func:`on_cuda` whether to launch (CUDA tensors) or to run
-its plain version (CPU tensors), and hands the C function's return code to
-:func:`check_launch`. Nothing falls back: a CUDA tensor the kernel cannot
-take raises before the launch, a refused launch raises after it.
+its plain version (CPU tensors), hands the C function's return code to
+:func:`check_launch`, and counts the launch with :func:`count_launch`.
+Nothing falls back: a CUDA tensor the kernel cannot take raises before the
+launch, a refused launch raises after it.
 """
 from __future__ import annotations
 
@@ -134,6 +135,23 @@ def on_cuda(name: str, *tensors) -> bool:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
     return True
+
+
+_count_lock = threading.Lock()  # guards every wrapper's launch counters
+
+
+def count_launch(wrapper, variant=None, shape=None) -> None:
+    """Add one launch to ``wrapper.launches`` and, where given, to
+    ``wrapper.launches_by_variant[variant]`` and
+    ``wrapper.launches_by_shape[shape]``, under one lock for every
+    wrapper: threads that launch at once (the MPC thread beside the
+    control loop) lose no count. The launch itself is made outside it."""
+    with _count_lock:
+        wrapper.launches += 1
+        if variant is not None:
+            wrapper.launches_by_variant[variant] += 1
+        if shape is not None:
+            wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
 
 
 def check_launch(name: str, err: int, what: str = "") -> None:

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import check_launch, load, on_cuda
+from .cuda_build import check_launch, count_launch, load, on_cuda
 from .riccati_fused import VARIANTS as SWEEP_VARIANTS
 from .riccati_fused import check_sweep_shapes, launch_sweep, sweep_plain
 from .spd_solve import spd_solve_plain
@@ -158,7 +158,7 @@ def project_geom(A, B, d, g0, Gx, Gv, F_bar, act, fm):
     with torch.cuda.device(A.device):
         err = project_fn("geom")(*_ptrs(ins + outs), nodes, _stream(A), None)
     check_launch("project_geom", err)
-    project_geom.launches += 1
+    count_launch(project_geom)
     return outs
 
 
@@ -209,7 +209,7 @@ def project_cost(lx, lu, lxx, luu, lux, p, P, Px_v, fm, shift: float = 1e-5):
         err = project_fn("cost")(*_ptrs(ins), float(shift), *_ptrs(outs), nodes, _stream(lxx),
                                  None)
     check_launch("project_cost", err)
-    project_cost.launches += 1
+    count_launch(project_cost)
     return outs
 
 
@@ -310,7 +310,7 @@ def riccati_forward_ll(A, B, d, K, kff, p, P, Px_v, fm, dx0):
     with torch.cuda.device(A.device):
         err = forward_fn()(*_ptrs(ins + (dX, dU)), Bb, N, _stream(A), None)
     check_launch("riccati_forward_ll", err)
-    riccati_forward_ll.launches += 1
+    count_launch(riccati_forward_ll)
     return dX, dU
 
 

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import check_launch, load, on_cuda
+from .cuda_build import check_launch, count_launch, load, on_cuda
 from .spd_solve import spd_solve_plain
 
 MAX_DIM = 36
@@ -205,8 +205,7 @@ def launch_sweep(wrapper, args, shift: float, symmetrize: bool, variant=None):
                                  Bb, N, nx, nu, float(shift), int(symmetrize),
                                  torch.cuda.current_stream(A.device).cuda_stream, None)
     check_launch(name, err, f" of nx = {nx}, nu = {nu} ({variant})")
-    wrapper.launches += 1
-    wrapper.launches_by_variant[variant] += 1
+    count_launch(wrapper, variant)
     return K, kff
 
 

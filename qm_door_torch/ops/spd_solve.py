@@ -51,7 +51,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import check_launch, load, on_cuda
+from .cuda_build import check_launch, count_launch, load, on_cuda
 
 MAX_N = 128
 
@@ -159,10 +159,7 @@ def _launch(wrapper, variant, A, Y, X, batch, n, m, shift, strides):
             what += ": a shape the variant does not take, or more shared memory than a block"
             what += " may hold on this card"
         check_launch(name, err, what)
-    wrapper.launches += 1
-    wrapper.launches_by_variant[variant] += 1
-    shape = (batch, n, m)
-    wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+    count_launch(wrapper, variant, (batch, n, m))
 
 
 def _variant_for(name, n, m, forced):

@@ -1,5 +1,5 @@
-"""Riccati LQ solve over the horizon (port of qm_door_tpu/solver/riccati.py
-without the associative-scan backend).
+"""Riccati LQ solve over the horizon (port of qm_door_tpu/solver/riccati.py;
+the associative-scan backend is solver/parallel_riccati.py).
 
 The LQ problem is defect-aware multiple shooting:
   min  sum_k 1/2 dx'lxx dx + 1/2 du'luu du + du'lux dx + lx'dx + lu'du

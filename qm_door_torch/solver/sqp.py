@@ -2,8 +2,9 @@
 qm_door_tpu/solver/sqp.py).
 
 ``sqp_iteration`` is one scenario's iteration (per-scenario projection and
-sweeps, the filter linesearch over the whole alpha grid in one batched
-evaluation); ``SqpSolver.solve`` runs ``sqp_iterations`` of them from a
+sweeps, or with ``riccati="parallel"`` the gains from the associative scan
+of solver/parallel_riccati.py; the filter linesearch over the whole alpha
+grid in one batched evaluation); ``SqpSolver.solve`` runs ``sqp_iterations`` of them from a
 cold start or from the previous solution shifted onto the new grid. The
 batched serving iteration is solver/batched_sqp.py.
 """
@@ -17,7 +18,8 @@ import torch
 from ..models.model import RobotModel
 from ..ocp import constraints as cons
 from ..ocp.problem import OcpConfig, StageData, stage_cost, terminal_cost
-from .riccati import lqr_solve
+from .parallel_riccati import parallel_riccati_backward
+from .riccati import lqr_solve, riccati_forward
 from .transcription import (PROJECTIONS, LqProblem, check_linearization, linearize_ocp,
                             project_ocp, rk2_step)
 
@@ -121,14 +123,17 @@ def sqp_iteration(model: RobotModel, ocp: OcpConfig, stage: StageData, dt, setti
     """One SQP iteration of one scenario: X (N+1, 30), U (N, nu).
     Returns updated (X, U, (cost, violation, step_size)); the inputs are
     not modified."""
-    if settings.riccati == "parallel":
-        raise NotImplementedError("riccati='parallel' (the associative scan) is not ported yet")
     lq = linearize_ocp(model, ocp, stage, dt, X[None], U[None],
                        sensitivity=settings.sensitivity, tangents=settings.lin_tangents)
     lq = LqProblem(**{k: v[0] for k, v in vars(lq).items()})
     plq = project_ocp(lq, stage, U, shift=settings.hessian_shift, method=settings.projection,
                       arm_locked=ocp.arm_locked)
-    dX, dU, _, _ = lqr_solve(plq, x_init - X[0])
+    dx0 = x_init - X[0]
+    if settings.riccati == "parallel":
+        K, kff = parallel_riccati_backward(plq)
+        dX, _, dU = riccati_forward(plq, K, kff, dx0)
+    else:
+        dX, dU, _, _ = lqr_solve(plq, dx0)
 
     # the baseline merit comes free from the linearization byproducts
     cost0 = lq.cost

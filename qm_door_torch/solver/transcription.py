@@ -27,9 +27,10 @@ from functools import partial
 from typing import Optional
 
 import torch
-from torch.func import jacfwd, jacrev, jvp, vmap
+from torch.func import vmap
 
 from ..models import centroidal, kinematics, spatial
+from ..models.autodiff import jacfwd, jacrev, jvp
 from ..models.spatial import fmm, fmv
 from ..models.dynamics import centroidal_momentum_matrix, com_position
 from ..models.model import RobotModel

@@ -16,7 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "qm_door_tpu")
 # the port's scripts at the repository's root, each run on the card
 PORT_SCRIPTS = ("chip_smoke.py", "trot_2s.py", "side_paths.py", "k1_launch_shapes.py",
-                "lq_launch_shapes.py", "sweep_launch_shapes.py", "door_run.py")
+                "lq_launch_shapes.py", "sweep_launch_shapes.py", "door_run.py", "realtime_run.py")
 
 
 def _port_modules():
@@ -58,9 +58,49 @@ def test_importing_every_port_module_loads_no_jax():
                  "qm_door_torch.estimation.base", "qm_door_torch.estimation.kalman",
                  "qm_door_torch.sim.closed_loop", "qm_door_torch.sim.door",
                  "qm_door_torch.sim.door_loop", "qm_door_torch.scenarios",
-                 "qm_door_torch.runtime.gait_command", "qm_door_torch.runtime.planner"):
+                 "qm_door_torch.runtime.gait_command", "qm_door_torch.runtime.planner",
+                 "qm_door_torch.native", "qm_door_torch.runtime.async_runner",
+                 "qm_door_torch.runtime.targets", "qm_door_torch.runtime.metrics",
+                 "qm_door_torch.runtime.msgs", "qm_door_torch.ocp.collision",
+                 "qm_door_torch.solver.rollout", "qm_door_torch.solver.parallel_riccati",
+                 "qm_door_torch.models.autodiff"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_port_opens_nothing_of_the_jax_package():
+    """Importing every port module and building, loading and driving the
+    native library (its mailbox and timer) open no file under qm_door_tpu/
+    and load no shared library from it: an audit hook records every open,
+    directory listing and ctypes.dlopen of the process."""
+    code = (
+        "import importlib, json, os, sys\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'os.listdir', 'os.scandir', 'ctypes.dlopen') and args:\n"
+        "        a = args[0]\n"
+        "        if isinstance(a, (str, bytes, os.PathLike)):\n"
+        "            seen.append([event, os.path.abspath(os.fsdecode(a))])\n"
+        "sys.addaudithook(hook)\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "from qm_door_torch import native\n"
+        "mb = native.Mailbox(64)\n"
+        "assert mb.write(b'x') == 2 and mb.read() == (2, b'x')\n"
+        "native.PeriodicTimer(0.001).wait()\n"
+        "print(json.dumps(seen))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    import json
+
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    jax_pkg = os.path.join(ROOT, "qm_door_tpu")
+    assert [s for s in seen if s[1] == jax_pkg or s[1].startswith(jax_pkg + os.sep)] == []
+    dlopened = [p for e, p in seen if e == "ctypes.dlopen"]
+    assert any(p.startswith(os.path.join(ROOT, "build", "qm_door_torch", "libqm_native-"))
+               for p in dlopened), dlopened
 
 
 def _sources():

@@ -158,14 +158,18 @@ def test_make_ocp_config_matches_jax(P):
 
 
 def test_unported_options_raise(P):
-    """The self-collision cost is the one OCP option not ported."""
+    """No OCP option is refused any more: the self-collision cost, the last
+    one, is ported (ocp/collision.py; tests/test_torch_collision.py holds it
+    to JAX). make_ocp_config and convert carry its settings."""
     cfg = P.tcfg.__class__()
     cfg.self_collision.mu = 1.0
-    with pytest.raises(NotImplementedError, match="self-collision"):
-        t_prob.make_ocp_config(P.tmodel, cfg)
+    ocp = t_prob.make_ocp_config(P.tmodel, cfg)
+    assert (ocp.self_collision_mu, ocp.self_collision_delta, ocp.self_collision_margin) == (
+        1.0, cfg.self_collision.delta, cfg.self_collision.margin)
     jd = as_numpy_fields(P.jocp)
-    with pytest.raises(NotImplementedError, match="self-collision"):
-        convert.ocp_config_from_numpy(dict(jd, self_collision_mu=1.0), device="cpu")
+    assert convert.ocp_config_from_numpy(dict(jd, self_collision_mu=1.0),
+                                         device="cpu").self_collision_mu == 1.0
+    assert P.tocp.self_collision_mu == jd["self_collision_mu"] == 0.0
 
 
 @pytest.mark.parametrize("k", [0, 3, 9])

@@ -242,13 +242,23 @@ def test_sqp_iteration_leaves_its_inputs(P, solvers):
     np.testing.assert_array_equal(to_np(Xn[0]), P.xb[0])
 
 
-def test_riccati_parallel_is_refused(P):
+def test_riccati_parallel_is_refused(P, j_solves):
+    """riccati="parallel" is no longer refused: the associative scan
+    (solver/parallel_riccati.py) runs the iteration, and from the perturbed
+    iterate it lands on JAX's jitted iteration (the sequential sweep, which
+    JAX's own scan equals at 1e-8, tests/test_parallel_riccati.py) at the
+    iteration's bars."""
     cfg = P.tcfg.__class__()
     cfg.sqp.riccati = "parallel"
+    cfg.sqp.linesearch_steps = P.tcfg.sqp.linesearch_steps
     cfg.mpc.time_horizon = P.tcfg.mpc.time_horizon
     ts = TSqpSolver(P.tmodel, P.tocp, cfg)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        ts.solve(P.tstage, P.t(P.xb[0]))
+    sol = j_solves["iteration"]
+    Xt, Ut, st = t_sqp_iteration(P.tmodel, P.tocp, P.tstage, P.tcfg.sqp.dt, ts.settings,
+                                 P.t(P.xb[0]), P.t(P.Xp), P.t(P.Up))
+    _close(Xt, sol.X, ITER_TOL, "X")
+    _close(Ut, sol.U, ITER_TOL, "U")
+    _close(st, (sol.cost, sol.constraint_violation, sol.step_size), ITER_TOL, "stats")
 
 
 @pytest.mark.parametrize("field,value", [("projection", "svd"), ("riccati", "assoc")])
