@@ -208,6 +208,31 @@ Phases:
       finite, violation within VIOLATION_MAX, within (c)'s bars of the CPU's
       f64 solve, the pairs' clearances printed.
 
+  (m) the last modules on the card. The mesh of one: scenario_mesh() over
+      one NCCL process (parallel/mesh.py, world size 1, a free local port)
+      with BatchedMpc(mesh=...) stepped once from (b)'s iterate at B = 384,
+      N = 67: bm_k1 with shared stage data (timed in turns against the
+      step without the mesh: plain, mesh, mesh, plain), bm_k1 with
+      per-scenario stage data and lq_fused; each held to the same step
+      without the mesh on the same inputs (bit for bit expected, never past
+      (c)'s bars), its outputs Shard(0) DTensors, K1 exactly 68 (67 reg32 +
+      1 reg16) a bm_k1 step and K3a-d one launch each on lq_fused. The four
+      examples (examples/*_torch.py), each main(argv) in-process for 0.01 s
+      (the two solves at t = 0, five ticks) on the card in f32,
+      scenario_demo on stairs: safe, every row finite, every solve and tick
+      timed, K1 exactly 68 a solve and 101 a tick (the door 136 and 101) by
+      variant and shape; trot_demo's rows against the golden's first 5 at
+      EXAMPLE_TROT_BARS. Then the plots' kinematic data (utils/viz.py:
+      skeleton_data, force_arrows_data, support_data) on the card model
+      against the CPU's f64 model within 1e-5 m. Where the host has
+      matplotlib, each example's figures and each plot are written and held
+      non-empty; where it has none (the card's host), the examples run with
+      --no-figures and the lines say so.
+  The libraries the run built and reused (utils/compile_cache.py: the
+  script switches the build cache on first, as bench.py does, and (b)'s
+  result line carries bench.py's "compile_cache" key) are printed before
+  the kernels line.
+
 Every launch counter is set to 0 just before each backend's steps and read
 just after. The line before the last is {"kernels": [...]} (K1 and K2 a
 second time, on (g)'s force-tracking path; K1 at (h)'s six shapes; K1 on
@@ -966,8 +991,12 @@ def timer(stage_ms, device):
     return timed
 
 
+COMPILE_CACHE = None  # the build-cache switch's answer (utils/compile_cache.py), set by main
+
+
 def run_result(run, backend, step_device):
-    """The bench.py-style result line of one backend's run."""
+    """The bench.py-style result line of one backend's run; compile_cache is
+    bench.py's key: whether the libraries persist in the build cache."""
     import torch
 
     elapsed, steps, warm = run["elapsed"], run["steps"], run["warm_steps"]
@@ -994,6 +1023,7 @@ def run_result(run, backend, step_device):
         "launches_per_step": {k: v / steps for k, v in run["launches"].items() if v},
         "linesearch_evals_per_step": run["linesearch_evals"] / steps,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "compile_cache": COMPILE_CACHE,
     }
 
 
@@ -3031,9 +3061,10 @@ def side_run(dev, label, reference, **runner_kw):
     return result
 
 
-def trot_check(run_log, rows, label, bars=TROT_BARS):
+def trot_check(run_log, rows, label, bars=TROT_BARS, tag="j"):
     """The run safe, finite, every tick's row present with t equal to the
-    golden's, and each deviation within its bar; returns the deviations."""
+    golden's, and each deviation within its bar; returns the deviations.
+    `tag`: the phase the lines are logged under."""
     dev_ = golden_deviation(run_log, rows)
     finite = all(np.isfinite(np.stack(getattr(run_log, k))).all()
                  for k in ("base_pose", "x_obs", "tau", "ee_pos"))
@@ -3041,9 +3072,9 @@ def trot_check(run_log, rows, label, bars=TROT_BARS):
         dev_[k] <= bar for k, bar in bars.items())
     line = {"label": label, "safe": run_log.safe, "finite": finite, "deviation": dev_,
                 "bars": bars, "bands": TROT_BANDS}
-    log(f"[j] {label} against the golden " + json.dumps(line))
+    log(f"[{tag}] {label} against the golden " + json.dumps(line))
     if not ok:
-        raise RuntimeError(f"(j) {label} against the golden: {json.dumps(line)}")
+        raise RuntimeError(f"({tag}) {label} against the golden: {json.dumps(line)}")
     return line
 
 
@@ -3486,6 +3517,293 @@ def phase_option_solves(dev):
     return row, out
 
 
+# (m) the last modules on the card: the scenario mesh of one process
+# (parallel/mesh.py) under BatchedMpc, the four examples in-process, the plots
+# each example: the arguments before its window, its figures, and K1's calls
+# a solve and a tick (by (batch, n, m)); the window holds the two solves at
+# t = 0 and five ticks
+EXAMPLE_SECONDS = "0.01"
+# the trot demo's rows against the golden's first 5 (EXAMPLE_SECONDS), by
+# TROT_BARS's rule: a band of TROT_BANDS where the JAX package's own f32 run
+# of the same window stays inside it on the CPU, twice JAX's f32 deviation
+# (rounded up) where it does not. python3 tests/torch_parity.py trot-bars
+# 0.01: JAX's f32 run against the golden's first 5 rows: base xyz 2.60e-8 m,
+# rpy 1.08e-10 rad, EE 1.03e-7 m, torques p95 1.931 Nm (past the 1 Nm band:
+# over 5 rows the p95 is the f32 polish's single ticks; over (j)'s 50 rows
+# it is 0.635), max 7.75 Nm; its f64 run: 0, 0, 0, 0.221 Nm, 0.802 Nm
+EXAMPLE_TROT_BARS = dict(TROT_BANDS, tau_p95=3.9)
+# the plots' kinematic data on the card (f32) against the same data of the
+# CPU's f64 model: positions in m
+PLOT_DATA_BAR = 1e-5
+NO_MATPLOTLIB = "not drawn: matplotlib is not installed on this host"
+
+
+def can_draw():
+    """Whether this host can draw figures (the examples and utils/viz.py
+    draw with matplotlib; the card's host may not have it)."""
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+EXAMPLES = {
+    "trot_demo_torch": ([], ("trot_demo.png", "trot_report.png"), SOLVE_K1, TICK_K1["combined"]),
+    "door_demo_torch": ([], ("door_demo.png",), DOOR_SOLVE_K1, DOOR_TICK_K1),
+    "ee_tracking_demo_torch": ([], ("ee_tracking_report.png",), SOLVE_K1,
+                               TICK_K1["combined"]),
+    "scenario_demo_torch": (["stairs"], ("stairs_report.png",), SOLVE_K1, TICK_K1["combined"]),
+}
+
+
+def mesh_step(mpc, mesh_mpc, stage, x, X, U, label):
+    """One step of `mpc` (no mesh) and of `mesh_mpc` (the same solver and
+    backend on the mesh of one) from the same inputs, the counters set to 0
+    just before the mesh step and read just after; held: the launches of one
+    step of its backend, the mesh's outputs Shard(0) and equal to the
+    step without it within (c)'s bars (bit for bit expected). Returns the
+    numbers and the mesh step's outputs."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+    from qm_door_torch.parallel.mesh import replicate, shard_batch
+
+    mesh = mesh_mpc.mesh
+    ref = mpc.step(stage, x, X, U)
+    placed = (replicate(stage, mesh) if mesh_mpc.shared_stage else shard_batch(stage, mesh),
+              *(shard_batch(a, mesh) for a in (x, X, U)))
+    torch.cuda.synchronize()
+    reset_launches()
+    out = mesh_mpc.step(*placed)
+    torch.cuda.synchronize()
+    launches, k1_variants = read_launches(), dict(spd_solve.launches_by_variant)
+    per_step = LAUNCHES_PER_STEP[mesh_mpc.backend]
+    k1_per_step = K1_VARIANTS_PER_STEP[mesh_mpc.backend]
+    want = {kid: per_step.get(kid, 0) for kid in launches}
+    want_k1 = {v: k1_per_step.get(v, 0) for v in k1_variants}
+    flat = list(out[:2]) + list(out[2])
+    sharded = all(tuple(a.placements) == (Shard(0),) for a in flat)
+    local = [a.to_local() for a in flat]
+    refs = list(ref[:2]) + list(ref[2])
+    dX, dU = ((local[i] - refs[i]).abs().max().item() for i in (0, 1))
+    bitwise = all(torch.equal(a, b) for a, b in zip(local, refs))
+    line = {"label": label, "backend": mesh_mpc.backend, "shared_stage": mesh_mpc.shared_stage,
+            "batch": int(x.shape[0]), "mesh_size": mesh.size(), "launches": launches,
+            "k1_by_variant": k1_variants, "sharded": sharded, "max_abs_dX": dX,
+            "max_abs_dU": dU, "bitwise": bitwise,
+            "finite": all(bool(torch.isfinite(a).all()) for a in local)}
+    log(f"[m] mesh {label} " + json.dumps(line))
+    if (launches, k1_variants) != (want, want_k1) or not (
+            sharded and line["finite"] and dX <= CROSS_DX_MAX and dU <= CROSS_DU_MAX):
+        raise RuntimeError(f"(m) mesh {label}: {json.dumps(line)}; expected launches {want}, "
+                           f"K1 by variant {want_k1}")
+    return line, placed
+
+
+def phase_mesh(dev, main_path):
+    """(m)'s mesh of one: scenario_mesh() over one NCCL process, and
+    BatchedMpc(mesh=...) stepped from (b)'s final iterate at B = 384, N =
+    67: bm_k1 with shared stage data (timed in turns against the same step
+    without the mesh: plain, mesh, mesh, plain, host ms between
+    synchronizes) and with per-scenario stage data, then lq_fused; each held
+    to the step without the mesh (mesh_step). Destroys the process group at
+    the end. Returns the lines."""
+    import torch
+    import torch.distributed as dist
+
+    from qm_door_torch.parallel.batched import BatchedMpc
+    from qm_door_torch.parallel.mesh import scenario_mesh
+
+    run = main_path["run"]
+    mpc, stage, x, X, U = (run[k] for k in ("mpc", "stage", "x_batch", "X", "U"))
+    mesh = scenario_mesh()
+    try:
+        lines = {}
+        mesh_mpc = BatchedMpc(mpc.solver, mesh=mesh, backend="bm_k1")
+        lines["bm_k1_shared"], placed = mesh_step(mpc, mesh_mpc, stage, x, X, U, "bm_k1 shared")
+        steps = {"plain": lambda: mpc.step(stage, x, X, U), "mesh": lambda: mesh_mpc.step(*placed)}
+
+        def host_ms(fn):
+            torch.cuda.synchronize()
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.time() - t)
+
+        turns, means = in_turns(steps, ("plain", "mesh", "mesh", "plain"), host_ms)
+        lines["bm_k1_shared"].update(step_ms_turns=turns, step_ms=means)
+        log("[m] mesh bm_k1 step host ms in turns " + json.dumps(turns))
+        per = make_problem(dev, torch.float32, BATCH, "analytic_bf16", shared_stage=False)
+        lines["bm_k1_per_scenario"], _ = mesh_step(
+            per[0], BatchedMpc(per[0].solver, mesh=mesh, shared_stage=False,
+                                    backend="bm_k1"), per[1], x, X, U, "bm_k1 per_scenario")
+        lq = BatchedMpc(mpc.solver, backend="lq_fused")
+        lines["lq_fused_shared"], _ = mesh_step(
+            lq, BatchedMpc(mpc.solver, mesh=mesh, backend="lq_fused"), stage, x, X, U,
+            "lq_fused shared")
+    finally:
+        dist.destroy_process_group()
+    return lines
+
+
+@contextlib.contextmanager
+def timed_calls(host):
+    """Every SqpSolver.solve and QmController.tick inside the block (any
+    runner's), each timed between two synchronizes: host ms appended to
+    host["solve"] / host["tick"]."""
+    import torch
+
+    from qm_door_torch.runtime.controller import QmController
+    from qm_door_torch.solver.sqp import SqpSolver
+
+    methods = {"solve": (SqpSolver, "solve"), "tick": (QmController, "tick")}
+    saved = {kind: getattr(cls, name) for kind, (cls, name) in methods.items()}
+
+    def timed(kind, fn):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            host[kind].append(1e3 * (time.time() - t))
+            return out
+        return call
+
+    for kind, (cls, name) in methods.items():
+        setattr(cls, name, timed(kind, saved[kind]))
+    try:
+        yield host
+    finally:
+        for kind, (cls, name) in methods.items():
+            setattr(cls, name, saved[kind])
+
+
+def phase_examples(out_dir):
+    """(m)'s four examples, each main(argv) called in-process on the card
+    (f32) for EXAMPLE_SECONDS with its figures in `out_dir`, the counters
+    set to 0 just before and read just after; every solve and tick timed.
+    Held: safe, every row finite, each figure written and non-empty, K1
+    exactly its path's calls a solve and a tick by variant and shape
+    (check_trot_launches), every other kernel 0; trot_demo's rows against
+    the golden's at EXAMPLE_TROT_BARS (trot_check). On a host without matplotlib
+    the examples run with --no-figures and the line says so. Returns each
+    example's line and the trot demo's log."""
+    import importlib
+
+    import torch
+
+    from qm_door_torch.ops.spd_solve import spd_solve
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    lines, logs, draw = {}, {}, can_draw()
+    for name, (before, figures, solve_k1, tick_k1) in EXAMPLES.items():
+        example = importlib.import_module(name)
+        figure_dir = os.path.join(out_dir, name)
+        host = {"solve": [], "tick": []}
+        with timed_calls(host):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.time()
+            run_log = example.main(before + [EXAMPLE_SECONDS, "--out", figure_dir]
+                                   + ([] if draw else ["--no-figures"]))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches, by_shape = read_launches(), dict(spd_solve.launches_by_shape)
+            k1_variants = dict(spd_solve.launches_by_variant)
+        result = {"example": name, "seconds": float(EXAMPLE_SECONDS), "wall_s": wall,
+                  "safe": run_log.safe, "ticks": len(host["tick"]),
+                  "solves": len(host["solve"]), "rows": len(run_log.t),
+                  "host_ms_median": {k: float(np.median(v)) for k, v in host.items()},
+                  "host_ms": host, "launches": launches, "k1_by_variant": k1_variants,
+                  "k1_by_shape": shape_keys(by_shape),
+                  "figures": {f: os.path.getsize(os.path.join(figure_dir, f))
+                              if os.path.exists(os.path.join(figure_dir, f)) else 0
+                              for f in figures} if draw else NO_MATPLOTLIB}
+        fields = ("base_pose", "ee_pos") + (("panel", "lever") if hasattr(run_log, "panel")
+                                            else ("x_obs", "tau"))
+        result["finite"] = all(np.isfinite(np.asarray(getattr(run_log, f), dtype=float)).all()
+                               for f in ("t",) + fields)
+        log(f"[m] example {name} " + json.dumps(result))
+        check_trot_launches(result, by_shape, f"(m) {name}", solve_k1, tick_k1)
+        if not (result["safe"] and result["finite"] and result["ticks"] >= 1
+                and result["solves"] >= 1 and (not draw or all(result["figures"].values()))):
+            raise RuntimeError(f"(m) {name}: {json.dumps(result)}")
+        if name == "trot_demo_torch":
+            rows = [json.loads(line) for line in open(TROT_GOLDEN)][:len(run_log.t)]
+            result["golden"] = trot_check(run_log, rows, name, EXAMPLE_TROT_BARS, tag="m")
+        lines[name], logs[name] = result, run_log
+    return lines, logs["trot_demo_torch"]
+
+
+def phase_plots(dev, out_dir, trot_log, main_path):
+    """(m)'s plots on the card model (f32): the skeleton and the force
+    arrows at the trot demo's last state (the arrows of (b)'s first input,
+    30 wide, and of a 36-wide input with an EE wrench), the footholds and
+    support polygons over its rows with the trot's contact flags. Held:
+    each plot's kinematic data (utils/viz.py: skeleton_data,
+    force_arrows_data, support_data) within PLOT_DATA_BAR of the same data
+    on the CPU's f64 model; each figure written and non-empty, where the
+    host can draw (can_draw). Returns the deviations and figure sizes."""
+    import torch
+
+    from qm_door_torch.models.model import aliengo_z1
+    from qm_door_torch.ocp.gait import GAIT_LIBRARY, GaitSchedule
+    from qm_door_torch.utils import viz
+
+    models = {"card": aliengo_z1(dtype=torch.float32, device=dev),
+              "cpu_f64": aliengo_z1(dtype=torch.float64, device="cpu")}
+    q_traj = np.stack(trot_log.x_obs)[:, 6:30]
+    sched = GaitSchedule()
+    sched.insert_template(GAIT_LIBRARY["trot"], 0.0, 7.0)
+    flags = np.stack([sched.contact_flags_at(t) for t in trot_log.t])
+    u = main_path["run"]["U"][0, 0]
+    u36 = torch.cat([u, torch.tensor([25.0, 0.0, -5.0, 0.0, 0.0, 0.0], device=dev)])
+    channels = {  # name -> (data function, plot function, arguments after the model)
+        "skeleton": (viz.skeleton_data, viz.plot_skeleton, (q_traj[-1],)),
+        "force_arrows": (viz.force_arrows_data, viz.plot_force_arrows, (q_traj[-1], u)),
+        "force_arrows_ee": (viz.force_arrows_data, viz.plot_force_arrows, (q_traj[-1], u36)),
+        "support": (viz.support_data, viz.plot_support_and_footholds, (q_traj, flags)),
+    }
+    out, draw = {}, can_draw()
+    for name, (data, plot, args) in channels.items():
+        card, ref = (data(m, *args) for m in models.values())
+        dev_ = max(float(np.abs(np.asarray(card[k], dtype=float) - ref[k]).max())
+                   for k in ref if ref[k] is not None)
+        out[name] = {"data_max_abs_dev": dev_}
+        if draw:
+            path = os.path.join(out_dir, f"{name}.png")
+            out[name]["bytes"] = os.path.getsize(path) if plot(models["card"], *args,
+                                                               path) == path else 0
+        else:
+            out[name]["figure"] = NO_MATPLOTLIB
+    log("[m] plots on the card model " + json.dumps(out))
+    if not all(v["data_max_abs_dev"] <= PLOT_DATA_BAR and v.get("bytes", 1) > 0
+               for v in out.values()):
+        raise RuntimeError(f"(m) plots: {json.dumps(out)} (bar {PLOT_DATA_BAR})")
+    return out
+
+
+def phase_last_modules(dev, main_path):
+    """(m) the last modules on the card: the mesh of one (phase_mesh), the
+    four examples (phase_examples) and the plots (phase_plots), figures in
+    a temporary directory removed at the end. Returns the lines, with each
+    part's seconds."""
+    import tempfile
+
+    seconds, t = {}, time.time()
+    out = {"mesh": phase_mesh(dev, main_path)}
+    seconds["mesh"], t = time.time() - t, time.time()
+    with tempfile.TemporaryDirectory(prefix="qm_door_torch_m-") as tmp:
+        out["examples"], trot_log = phase_examples(tmp)
+        seconds["examples"], t = time.time() - t, time.time()
+        out["plots"] = phase_plots(dev, tmp, trot_log, main_path)
+        seconds["plots"] = time.time() - t
+    out["seconds"] = seconds
+    log("[m] K1 launches: mesh bm_k1 step " + json.dumps(
+        {k: v["launches"]["K1"] for k, v in out["mesh"].items()}) + ", examples " + json.dumps(
+        {k: {"K1": v["launches"]["K1"], "solves": v["solves"], "ticks": v["ticks"]}
+         for k, v in out["examples"].items()}) + "; seconds " + json.dumps(seconds))
+    return out
+
+
 KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "K1-ll": ("spd_solve_ll", "qm_door_torch/csrc/spd_solve.cu",
               "qm_door_tpu/ops/pallas_chol.py:133"),
@@ -3510,6 +3828,10 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import qm_door_torch  # noqa: F401  (pins full-f32 matmuls)
+    from qm_door_torch.utils import compile_cache
+
+    global COMPILE_CACHE
+    COMPILE_CACHE = compile_cache.enable_persistent_cache()
 
     if not (torch.backends.cuda.matmul.allow_tf32 is False
             and torch.backends.cudnn.allow_tf32 is False
@@ -3545,6 +3867,7 @@ def main():
     door_row, _ = phase("k", phase_door, dev)
     realtime_row, _ = phase("l", phase_realtime, dev)
     scan_row, _ = phase("l_options", phase_option_solves, dev)
+    phase("m", phase_last_modules, dev, main_path)
 
     on_path = [r for r in rows if r["calls_per_step"]]
     per_step = lambda key: sum(r[key] * r["calls_per_step"] for r in on_path)  # noqa: E731
@@ -3625,6 +3948,8 @@ def main():
     # associative scan's solve (riccati="parallel"), one solve's launches
     kernels.append(realtime_row)
     kernels.append(scan_row)
+    log(f"libraries of the run (cache {'on' if COMPILE_CACHE else 'off'}, "
+        f"{compile_cache.build_dir()}): " + json.dumps(compile_cache.build_counts()))
     log(f"total {time.time() - t_start:.1f} s; by phase " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     log(card)

@@ -17,3 +17,11 @@ def resolve_device(device=None) -> torch.device:
             "qm_door_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def resolve_precision(device=None):
+    """(device, dtype) of an example run: CUDA in float32 unless the caller
+    asks for the CPU, which runs in float64 (the JAX package's reference
+    precision). Raises as :func:`resolve_device` does."""
+    dev = resolve_device(device)
+    return dev, torch.float64 if dev.type == "cpu" else torch.float32

@@ -9,8 +9,9 @@ sleeper (ocs2 executeAndSleep): a deadline missed by more than a period is
 skipped and counted as an overrun.
 
 At first use the source is compiled with ``g++ -O2 -std=c++17 -shared
--fPIC ... -lpthread`` into ``build/qm_door_torch/libqm_native-<hash>.so``
-at the repository root (listed in .gitignore), the hash covering the source
+-fPIC ... -lpthread`` into ``libqm_native-<hash>.so`` in the build cache
+(``utils/compile_cache.py:build_dir``: by default ``build/qm_door_torch`` at
+the repository root, listed in .gitignore), the hash covering the source
 and the flags, and loaded with ctypes. Nothing falls back: a failed build
 or load raises. ``MailboxPlain`` and ``PeriodicTimerPlain`` are the same
 contracts in pure Python, reached only by name (the tests hold the library
@@ -25,9 +26,10 @@ import subprocess
 import threading
 import time
 
+from ..utils import compile_cache
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "src", "qm_native.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "qm_door_torch")
 # portable baseline ISA: a library copied to another host must not need the
 # build host's extensions
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
@@ -41,7 +43,7 @@ def library_path() -> str:
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     with open(SRC, "rb") as f:
         digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libqm_native-{digest.hexdigest()[:12]}.so")
+    return os.path.join(compile_cache.build_dir(), f"libqm_native-{digest.hexdigest()[:12]}.so")
 
 
 def build() -> str:
@@ -49,8 +51,9 @@ def build() -> str:
     Raises RuntimeError when g++ fails."""
     path = library_path()
     if os.path.exists(path):
+        compile_cache.note_build(path, False)
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(["g++", *GXX_FLAGS, SRC, "-o", tmp, "-lpthread"],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -58,6 +61,7 @@ def build() -> str:
         raise RuntimeError(f"native library build failed: g++ exited {proc.returncode}\n"
                            f"{proc.stdout}")
     os.replace(tmp, path)
+    compile_cache.note_build(path, True)
     return path
 
 

@@ -2,9 +2,10 @@
 make around a launch.
 
 Each ``qm_door_torch/csrc/<name>.cu`` exposes a plain C interface. At first
-use it is compiled with ``nvcc`` for ``sm_90a`` into
-``build/qm_door_torch/lib<name>-<hash>.so`` at the repository root
-(listed in .gitignore) and loaded with ctypes; nvcc's ptxas report is kept
+use it is compiled with ``nvcc`` for ``sm_90a`` into ``lib<name>-<hash>.so``
+in the build cache (``utils/compile_cache.py:build_dir``: by default
+``build/qm_door_torch`` at the repository root, listed in .gitignore) and
+loaded with ctypes; nvcc's ptxas report is kept
 beside it (``.ptxas.txt``). The hash covers the source, every header of
 ``csrc/`` (``*.cuh``, which a source may include) and the flags, so a
 library is reused only while none of them has changed.
@@ -26,9 +27,10 @@ import threading
 
 import torch
 
+from ..utils import compile_cache
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "qm_door_torch")
 # --split-compile=0: nvcc optimizes a source's kernels in parallel (K1's
 # long straight-line reg64 kernels build in about half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -63,7 +65,7 @@ def _library_path(name: str, defines=()) -> str:
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(compile_cache.build_dir(), f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def report_path(library: str) -> str:
@@ -85,10 +87,11 @@ def build(name: str, defines=()) -> str:
         path = _library_path(name, defines)
         report = report_path(path)
         if os.path.exists(path) and os.path.exists(report):
+            compile_cache.note_build(path, False)
             with open(report) as f:
                 return f.read()
         nvcc = _nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.run([nvcc, *_flags(defines), "-o", tmp,
                                os.path.join(CSRC, f"{name}.cu")],
@@ -100,6 +103,7 @@ def build(name: str, defines=()) -> str:
             f.write(proc.stdout)
         os.replace(f"{report}.{os.getpid()}.tmp", report)
         os.replace(tmp, path)
+        compile_cache.note_build(path, True)
         return proc.stdout
 
 

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models import kinematics, spatial
 from ..models.model import RobotModel
 
@@ -57,9 +58,11 @@ def world_names():
 
 @lru_cache(maxsize=None)
 def load_world(name: str, offset: tuple = (0.0, 0.0, 0.0), dtype=torch.float64,
-               device="cpu") -> WorldMesh:
+               device=None) -> WorldMesh:
     """World mesh, optionally translated by ``offset`` (world placement), in
-    ``dtype`` on ``device`` (built once per placement, dtype and device)."""
+    ``dtype`` on ``device`` (built once per placement, dtype and device).
+    ``device=None`` means CUDA (see device.resolve_device)."""
+    device = resolve_device(device)
     tris = np.asarray(_load_raw()[name], dtype=np.float64).reshape(-1, 3, 3)
     tris = tris + np.asarray(offset)
     v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]

@@ -16,7 +16,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "qm_door_tpu")
 # the port's scripts at the repository's root, each run on the card
 PORT_SCRIPTS = ("chip_smoke.py", "trot_2s.py", "side_paths.py", "k1_launch_shapes.py",
-                "lq_launch_shapes.py", "sweep_launch_shapes.py", "door_run.py", "realtime_run.py")
+                "lq_launch_shapes.py", "sweep_launch_shapes.py", "door_run.py", "realtime_run.py",
+                "examples/trot_demo_torch.py", "examples/door_demo_torch.py",
+                "examples/ee_tracking_demo_torch.py", "examples/scenario_demo_torch.py")
 
 
 def _port_modules():
@@ -63,7 +65,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "qm_door_torch.runtime.targets", "qm_door_torch.runtime.metrics",
                  "qm_door_torch.runtime.msgs", "qm_door_torch.ocp.collision",
                  "qm_door_torch.solver.rollout", "qm_door_torch.solver.parallel_riccati",
-                 "qm_door_torch.models.autodiff"):
+                 "qm_door_torch.models.autodiff", "qm_door_torch.parallel.mesh",
+                 "qm_door_torch.utils.compile_cache", "qm_door_torch.utils.viz",
+                 "qm_door_torch.utils.dashboard", "qm_door_torch.models.urdf"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

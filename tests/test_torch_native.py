@@ -11,6 +11,7 @@ import time
 import pytest
 
 from qm_door_torch import native
+from qm_door_torch.utils import compile_cache
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAILBOXES = {"native": native.Mailbox, "plain": native.MailboxPlain}
@@ -105,6 +106,6 @@ def test_a_failed_build_raises(tmp_path, monkeypatch):
     bad = tmp_path / "qm_native.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(native, "SRC", str(bad))
-    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(compile_cache, "_dir", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="g\\+\\+ exited"):
         native.build()

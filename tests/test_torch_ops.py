@@ -20,6 +20,7 @@ import torch
 from qm_door_torch.ops import cuda_build
 from qm_door_torch.ops import spd_solve as k1
 from qm_door_torch.ops.spd_solve import spd_solve, spd_solve_ll, spd_solve_plain
+from qm_door_torch.utils import compile_cache
 from qm_door_tpu.ops.pallas_chol import spd_solve as j_spd_solve
 from qm_door_tpu.ops.pallas_chol import spd_solve_ll as j_spd_solve_ll
 from qm_door_tpu.ops.pallas_chol import spd_solve_reference as j_spd_reference
@@ -144,7 +145,7 @@ def test_defines_follow_the_common_flags():
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(compile_cache, "_dir", str(tmp_path / "build"))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
@@ -158,14 +159,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_library_name_follows_the_source():
     path = cuda_build._library_path("spd_solve")
-    assert path.startswith(cuda_build.BUILD_DIR) and path.endswith(".so")
+    assert path.startswith(compile_cache.build_dir()) and path.endswith(".so")
     assert path == cuda_build._library_path("spd_solve")
 
 
 def test_a_diagnostic_build_gets_its_own_library():
     plain = cuda_build._library_path("riccati_bwd")
     diag = cuda_build._library_path("riccati_bwd", ("QM_SWEEP_PHASE_CLOCKS",))
-    assert plain != diag and diag.startswith(cuda_build.BUILD_DIR)
+    assert plain != diag and diag.startswith(compile_cache.build_dir())
     assert "-DQM_SWEEP_PHASE_CLOCKS" in cuda_build._flags(("QM_SWEEP_PHASE_CLOCKS",))
 
 
@@ -177,7 +178,7 @@ def test_editing_a_header_changes_the_library_path(monkeypatch, tmp_path):
     assert before == cuda_build._library_path("kern")
     (tmp_path / "warp.cuh").write_text("// v2\n")
     after = cuda_build._library_path("kern")
-    assert after != before and after.startswith(cuda_build.BUILD_DIR)
+    assert after != before and after.startswith(compile_cache.build_dir())
     (tmp_path / "kern.cu").write_text('#include "warp.cuh"\n// edited\n')
     assert cuda_build._library_path("kern") not in (before, after)
 
@@ -187,7 +188,7 @@ def _fake_csrc(monkeypatch, tmp_path):
     (tmp_path / "csrc").mkdir()
     (tmp_path / "csrc" / "kern.cu").write_text("// kernel\n")
     monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path / "csrc"))
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(compile_cache, "_dir", str(tmp_path / "build"))
     return cuda_build._library_path("kern")
 
 

@@ -208,12 +208,12 @@ def maze():
 def test_world_library_is_the_same(maze):
     name, jmesh = maze
     assert t_world.world_names() == j_world.world_names()
-    tmesh = t_world.load_world(name)
+    tmesh = t_world.load_world(name, device="cpu")
     for field in t_world.WorldMesh._fields:
         np.testing.assert_allclose(to_np(getattr(tmesh, field)), np.asarray(getattr(jmesh, field)),
                                    **EXACT)
     offset = (0.5, -0.25, 0.0)
-    np.testing.assert_allclose(to_np(t_world.load_world(name, offset).v0),
+    np.testing.assert_allclose(to_np(t_world.load_world(name, offset, device="cpu").v0),
                                np.asarray(j_world.load_world(name, offset).v0), **EXACT)
 
 
@@ -274,7 +274,7 @@ def test_sim_step_with_walls_adds_the_wall_forces(models, maze):
     cmd = torch.zeros(2, 5, 18, dtype=F64)
     cmd[:, 0] = q[:, 6:24]
     walls = t_sim.sim_step(tm, cfg, t_sim.sim_init(tm, q, v, cfg), cmd)
-    tau = t_world.world_generalized_forces(tm, t_world.load_world(name), q, v)
+    tau = t_world.world_generalized_forces(tm, t_world.load_world(name, device="cpu"), q, v)
     free = t_sim.sim_step(tm, cfg._replace(world="none"), t_sim.sim_init(tm, q, v, cfg), cmd,
                           tau_gen_extra=tau)
     for field in ("q", "v", "anchor"):
@@ -397,3 +397,13 @@ def test_forward_dynamics_in_float32_is_as_accurate_as_jax():
     port_err = np.abs(port - ref).max()
     jax_err = np.abs(jax_a.astype(np.float64) - ref).max()
     assert 0.0 < jax_err < 1e-2 and port_err <= 2.0 * jax_err, (port_err, jax_err)
+
+
+def test_load_world_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch, maze):
+    """load_world's default device is CUDA, as every entry point of the
+    port's: without a CUDA device it raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    name, _ = maze
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_world.load_world(name, (0.25, 0.0, 0.0))
+    assert t_world.load_world(name, (0.25, 0.0, 0.0), device="cpu").v0.device.type == "cpu"
